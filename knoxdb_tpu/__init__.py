@@ -1,11 +1,11 @@
-"""knoxdb_tpu — a TPU-native vectorized columnar query engine.
+"""knoxdb_tpu — a vectorized columnar query engine in JAX.
 
 A from-scratch JAX/XLA/Pallas implementation of the capability set of the
 reference embedded analytics database (blockwatch-cc/knoxdb, surveyed in
 SURVEY.md): compressed column packs with decode fused into the scan,
 vectorized predicate filters compiled from AND/OR condition trees, zone-map
 and bloom pack pruning, MVCC with WAL-backed journal/merge, aggregation,
-sort/top-k and joins — scaled over TPU meshes with jax.sharding collectives.
+sort/top-k and joins — scaled over device meshes with jax.sharding collectives.
 """
 
 from . import config  # noqa: F401  (enables x64, sets pack geometry)

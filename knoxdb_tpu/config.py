@@ -1,18 +1,19 @@
 """Global configuration for the knoxdb_tpu engine.
 
-TPU-first geometry choices:
 - PACK_SIZE: rows per pack (column segment tile). The reference allows
-  2^8..2^22 rows per pack (/root/reference/README.md:60); we fix 2^16 which
-  maps to a (512, 128) VPU tile for 32-bit lanes and keeps one u64 column
-  pack at 512 KiB — comfortably double-bufferable in 16 MiB VMEM.
+  2^8..2^22 rows per pack (/root/reference/README.md:60); we fix 2^16, a
+  storage choice: one pack row of a bitplane is 2,048 u32 words (8 KB),
+  a u64 column pack is 512 KiB, and zone maps stay fine-grained enough
+  to prune.
 - All device compute uses uint32 limbs (order-preserving "key form", see
   utils/limbs.py); jax x64 is enabled only for host<->device conversion and
-  aggregation outputs (XLA emulates 64-bit integer adds on TPU).
+  aggregation outputs.
 """
 
 from __future__ import annotations
 
 import os
+from pathlib import Path
 
 import jax
 
@@ -20,7 +21,25 @@ import jax
 # accumulators need u64/i64. Hot kernels still operate on uint32 limbs.
 jax.config.update("jax_enable_x64", True)
 
-# Rows per pack. Must be a multiple of 128 (TPU lane width) * 32 (bitset word).
+# Persistent compile cache: JAX reads JAX_COMPILATION_CACHE_DIR itself;
+# without it the cache lives at a fixed path in the checkout (the path
+# is part of the cache key, so it must not move between runs).
+CACHE_DIR = Path(__file__).resolve().parents[1] / ".jax_cache"
+
+
+def compile_cache_dir(env=os.environ) -> str | None:
+    """Directory this package sets as JAX's compile cache: None when
+    JAX_COMPILATION_CACHE_DIR is set (JAX honours it unaided), else the
+    checkout's fixed .jax_cache."""
+    if env.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return str(CACHE_DIR)
+
+
+if compile_cache_dir() is not None:
+    jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
+
+# Rows per pack. Must be a multiple of 32 (bitset word) * 128.
 PACK_SIZE = int(os.environ.get("KNOX_TPU_PACK_SIZE", 1 << 16))
 assert PACK_SIZE % 4096 == 0, "PACK_SIZE must be a multiple of 4096"
 
@@ -35,78 +54,14 @@ JOURNAL_SIZE = int(os.environ.get("KNOX_TPU_JOURNAL_SIZE", 1 << 17))
 STATS_STRING_MAX_LEN = 8
 
 
-def is_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-
-
-# Pallas fused scan kernels (ops/pallas_scan.py): DEFAULT ON on TPU
-# since round 3 (KNOX_PALLAS=0 kills; KNOX_PALLAS=1 forces on-CPU
-# interpret mode for tests). History: rounds 1-2 the fused plan wedged
-# the TPU grant on the SECOND execution of any lax.scan-wrapped run
-# (INVALID_ARGUMENT, grant dead minutes). Round-3 isolation
-# (probes/scan_wedge_probe.py 28/28 clean, probes/scan_wedge_engine.py)
-# pinned the trigger: Mosaic kernel operands COMPUTED IN-GRAPH inside
-# the scan body. The engine now binds the kernel's per-plane select
-# masks on the HOST per query (exec/scan._prepare_tail) — the proven-
-# clean shape — and the fused plan captured 228 G rows/s at 93% of
-# same-run measured HBM bandwidth (vs the XLA plan's 51%, which pays a
-# second plane read for the masked popcount sweep).
-def use_pallas() -> bool:
-    env = os.environ.get("KNOX_PALLAS", "")
-    if env == "0":
-        return False
-    return env == "1" or is_tpu()
-
-
-# MASK-ONLY whole-tree fusion (count / group-by / top-k / stream /
-# join-side plans — no aggregate column in the kernel): DEFAULT ON
-# since round 5. Wired + probed clean in r4 (probes/maskonly_probe.py:
-# two real-chip process runs x 4 repeats, count/group/series/top-k all
-# bit-identical to the XLA path incl. the triple-Mosaic series
-# program), soaked one round opt-in per the wedge-history discipline.
-# KNOX_PALLAS_MASKONLY=0 reverts those plans to the two-pass XLA sweep.
-def use_pallas_maskonly() -> bool:
-    return os.environ.get("KNOX_PALLAS_MASKONLY", "") != "0"
-
-
-# Pallas fused GROUP-BY kernel (ops/pallas_group.py): DEFAULT ON.
-# Round-2-late probe on this harness: Mosaic compiles in seconds,
-# repeat executions are stable (4/4 bit-exact vs the XLA factored
-# kernel, no grant wedge), and the VMEM-one-hot kernel measures
-# 1.27-1.29 G rows/s at G=1000 vs 0.50 G for the XLA factored path.
-# KNOX_NO_PALLAS_GROUP=1 reverts to pure XLA if a future libtpu pair
-# regresses.
-def use_pallas_group() -> bool:
-    return os.environ.get("KNOX_NO_PALLAS_GROUP", "") != "1"
-
-
-# Pallas group kernel in the SERIES MOMENTS path (exec/scan.series_scan:
-# TWO fused_group_partials calls per program, one per moment half).
-# r4 TPU probe (probes/series_profile.py): repeat executions stable
-# (4/4 bit-exact vs the XLA factored kernel incl. under the lax.scan
-# marginal loop, no grant wedge — same shape discipline as the default-
-# on group kernel), cfg #6 2.33x end-to-end. DEFAULT ON with the group
-# kernel; KNOX_SERIES_PALLAS=0 kills just the series path if a future
-# libtpu pair regresses the two-kernel program.
-def use_pallas_series() -> bool:
-    env = os.environ.get("KNOX_SERIES_PALLAS", "")
-    if env == "0":
-        return False
-    return use_pallas_group()
-
-
-# Pallas group kernel UNDER shard_map (parallel/engine_spmd group path).
-# r3 gated this off on an untested assumption; the r4 probe
-# (probes/spmd_pallas_probe.py) runs the ShardedScanner group path with
-# Mosaic enabled on the virtual mesh AND a real-chip 1-device mesh.
-# KNOX_SPMD_PALLAS=1 enables, =0 kills; default follows the probe
-# result recorded in CLAUDE.md (on since r4 — virtual mesh 4/4
-# bit-exact; 1-device TPU mesh clean, see docs/bench.md).
-def use_spmd_pallas() -> bool:
-    env = os.environ.get("KNOX_SPMD_PALLAS", "")
-    if env == "0":
-        return False
-    return env == "1" or use_pallas_group()
+def kernel_family(platform: str | None = None) -> str:
+    """The one place that decides which kernels run: "triton" (the
+    hand-written Pallas kernel — the one-hot group-by, ops/pallas_group
+    — compiled for the GPU through Triton) or "xla" (plain JAX
+    everywhere). gpu -> "triton", anything else -> "xla". A scanner
+    takes this as its default (exec/scan.SegmentScanner.kernels) and
+    is the one place to override it. Interpret mode is never chosen
+    here: only a test asks for it, explicitly."""
+    if platform is None:
+        platform = jax.devices()[0].platform
+    return "triton" if platform == "gpu" else "xla"

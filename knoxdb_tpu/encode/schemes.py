@@ -1,13 +1,13 @@
 """Compression containers: host encode (numpy) + device decode (jnp).
 
 Scheme set mirrors the reference container families
-(/root/reference/internal/encode/container.go:20-55) re-designed for TPU:
+(/root/reference/internal/encode/container.go:20-55) re-designed for the accelerator:
 
 - CONST    one value per pack
 - RAW      keyform limbs as-is
 - BITPACK  (v - min) stored as w bitplanes of N/32 u32 words each —
-           arbitrary width 1..64, decode is w fused VPU shift/or passes,
-           HBM traffic = exactly N*w/8 bytes (vs the reference's horizontal
+           arbitrary width 1..64, decode is w fused shift/or passes,
+           memory traffic = exactly N*w/8 bytes (vs the reference's horizontal
            64-bit-word packing, internal/encode/bitpack)
 - DELTA    zigzag(first differences) bitplane-packed; decode = cumsum
 - RLE      run values + exclusive run ends; decode/matcher via searchsorted
@@ -19,7 +19,7 @@ Scheme set mirrors the reference container families
 
 All decode functions are batched over a leading pack axis so a scheme-group
 of packs decodes in ONE kernel launch, and are pure jnp so XLA fuses
-decode -> compare -> aggregate into a single HBM pass.
+decode -> compare -> aggregate into a single device-memory pass.
 """
 
 from __future__ import annotations
@@ -160,7 +160,7 @@ def encode_rle(run_values_limbs: np.ndarray, run_ends: np.ndarray, n: int,
 def encode_string_dict(values: list, n_pad: int,
                        width_round=None) -> EncodedPack:
     """STRING/BYTES pack: sorted byte dictionary (host) + bitplane-packed
-    codes (device). The TPU analog of the reference string containers
+    codes (device). The device analog of the reference string containers
     (internal/encode/container.go string family): every predicate —
     EQ/LT/RANGE/IN and even REGEXP — rewrites exactly into code space
     because the dictionary is byte-sorted and host-resident."""
@@ -278,8 +278,8 @@ def decode_bitplanes_pair(planes, width: int):
     word b of rows 32k..32k+31 is row b of a bit matrix whose
     transpose's row i IS the value word of row 32k+i. 5 masked exchange
     passes + one final relayout replace the per-plane expand/or chain,
-    which XLA refuses to fuse (measured r2: 4.8 ms at [64, 65536] w=41 —
-    every plane step materialized — vs ~0.5 ms transposed)."""
+    whose plane steps XLA may materialize one by one instead of fusing
+    (w passes over [P, N] in place of 5 over the planes)."""
     w, P, n32 = planes.shape
 
     def tr(block32):

@@ -3,12 +3,12 @@
 Mirrors the reference's estimator-driven container selection
 (/root/reference/internal/encode/int.go:35-108): analyze the vector once,
 estimate encoded size per legal scheme, pick the cheapest with a small
-preference bias toward schemes whose matchers are cheapest on TPU
+preference bias toward schemes whose matchers are cheapest on the device
 (CONST > BITPACK/bitsliced > DICT-code-rewrite > RLE > DELTA > RAW).
 
 Widths are rounded up to a small allowed set so scheme groups across packs
 share shapes (one XLA compilation per (scheme, width) family instead of one
-per exact bit width — the TPU analog of the reference's per-width codegen).
+per exact bit width — the device analog of the reference's per-width codegen).
 """
 
 from __future__ import annotations

@@ -39,11 +39,30 @@ class Options:
     journal_size: int = 1 << 17
     wal_sync: str = "sync"           # sync | delay | nosync
     background_merge: bool = True
-    device_cache_bytes: int = 8 << 30   # HBM residency budget for segments
+    # device-residency budget for segments; None derives it from the
+    # device (default_device_budget)
+    device_cache_bytes: int | None = None
     # multi-chip query execution: a jax.sharding.Mesh (runtime-only, not
     # persisted); segments build shard-uniform and scans run SPMD through
     # parallel/engine_spmd.ShardedScanner
     mesh: object = None
+
+
+# share of a GPU's allocator limit that segments may hold: the rest is
+# left to query temporaries (masks, decoded columns, one-hot operands)
+DEVICE_BUDGET_FRACTION = 0.5
+
+
+def default_device_budget() -> int:
+    """Segment residency budget: DEVICE_BUDGET_FRACTION of the GPU
+    allocator's bytes_limit; 8 GiB where the device reports none (the
+    CPU backend)."""
+    import jax
+    dev = jax.devices()[0]
+    stats = dev.memory_stats() if dev.platform == "gpu" else None
+    if stats and stats.get("bytes_limit"):
+        return int(stats["bytes_limit"] * DEVICE_BUDGET_FRACTION)
+    return 8 << 30
 
 
 class CacheManager:
@@ -64,7 +83,7 @@ class CacheManager:
     PROBATION_FRAC = 0.25          # rclru 2q.go: A1in sized at 25%
     GHOSTS = 256                   # A1out id capacity
 
-    def __init__(self, budget_bytes: int = 8 << 30):
+    def __init__(self, budget_bytes: int):
         self.budget = budget_bytes
         self._clock = 0
         # id -> (handle, bytes, last_use); insertion order = fifo age
@@ -362,7 +381,9 @@ class Engine:
         self._table_ids: dict[int, Table] = {}
         self.tasks = TaskService(enabled=self.opts.background_merge)
         self.locks = LockManager()
-        self.cache = CacheManager(self.opts.device_cache_bytes)
+        budget = self.opts.device_cache_bytes
+        self.cache = CacheManager(default_device_budget()
+                                  if budget is None else budget)
         self.mesh = self.opts.mesh
         self._xid = 1
         self._active: set[int] = set()

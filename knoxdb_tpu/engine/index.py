@@ -5,7 +5,7 @@ index/index.go:24-26,51-66, query.go): indexes map key -> row ids and
 decorate query plans with rid restrictions (the reference injects
 `$rid IN bitmap` conditions, internal/query/plan.go:312-449).
 
-TPU-first shape: because segments are immutable and rebuilt on merge, an
+Device-first shape: because segments are immutable and rebuilt on merge, an
 index is a per-table sorted (key, rid) pair of host arrays rebuilt from
 segment metadata at merge time — lookups are binary searches; the result
 rid set becomes a positional INCLUDE bitset ANDed into the device scan

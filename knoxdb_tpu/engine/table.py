@@ -3,7 +3,7 @@ segment scan + overlay merge, background merge into immutable segments.
 
 Mirrors the reference pack table engine's contract
 (/root/reference/internal/pack/table/table.go:58-73, insert.go:55-91,
-query.go:27-144, merge.go:21-101) with the TPU inversions from SURVEY §7:
+query.go:27-144, merge.go:21-101) with the device inversions from SURVEY §7:
 
 - immutable device-resident segments are the fast path (exec/scan.py);
   the journal overlay is host numpy (pack/journal.py)
@@ -564,7 +564,7 @@ class Table:
         moments = {f: [np.zeros(G, np.int64), np.zeros(G, np.float64),
                        np.zeros(G, np.float64)] for f in mom_fields}
 
-        # count/sum-only group queries skip the sort path: one-hot MXU
+        # count/sum-only group queries skip the sort path: one-hot matmul
         # matmul partials (exec/groupby.group_aggregate_mxu)
         need_minmax = any(op in ("min", "max") and f and not is_flt[f]
                           for op, f in aggs)

@@ -112,11 +112,9 @@ def _upload_column(col: EncodedColumn, pack_size: int) -> DeviceColumn:
         g = DeviceGroup(scheme, width, k, col.nlimbs, col.wide,
                         np.asarray(idxs, np.int64))
         if scheme in (Scheme.BITPACK, Scheme.DELTA, Scheme.DICT, Scheme.ALP):
-            # PLANE-MAJOR device layout [w, P, W] (r4): per-plane
-            # slices hit the LEADING dim — Mosaic pays no sublane
-            # relayout per plane (probes/ps_variants.py: the fused scan
-            # kernel drops 0.067 -> 0.046 ms) and XLA slices whole
-            # contiguous blocks
+            # PLANE-MAJOR device layout [w, P, W]: per-plane slices
+            # hit the LEADING dim, so one plane of every pack is one
+            # contiguous block
             g.arrays["planes"] = jnp.asarray(
                 np.stack([p.planes for p in packs], axis=1))
         if scheme == Scheme.ALP:
@@ -334,7 +332,7 @@ def group_match(g_sig: tuple, mode: FilterMode, arrays: dict, consts: dict,
     if scheme == Scheme.RLE:
         # fused: evaluate on run VALUES, expand by boundary deltas —
         # +1 at matched run starts, -1 at matched run ends, prefix-sum >0
-        # (k-sized scatters + one cumsum; [P, N] gathers are ~30x slower)
+        # (k-sized scatters + one cumsum instead of [P, N] gathers)
         rv = arrays["values"].transpose(1, 0, 2)     # u32[L, Pg, k]
         run_mask = _limb_mask_in_or_cmp(mode, rv, consts, nlimbs)
         rows = rle_expand_mask(arrays["ends"], run_mask, N)
@@ -420,16 +418,15 @@ _MXU_LOOKUP_MAX_K = 1024    # above this the FLOPs outgrow the gather win
 
 
 def onehot_lookup_u64(codes, values):
-    """EXACT dict decode via ONE-HOT MXU MATMULS: codes i32[Pg, N] in
+    """EXACT dict decode via ONE-HOT MATMULS: codes i32[Pg, N] in
     [0, k), values u64[Pg, k] -> u64[Pg, N].
 
-    take_along_axis at [Pg, N] row scale is the known ~30x-below-
-    bandwidth gather pathology (CLAUDE.md); the systolic array does the
-    same lookup as 8 batched one-hot x byte-plane matmuls. Every number
+    take_along_axis at [Pg, N] row scale is a row-scale gather; the
+    tensor cores do the same lookup as 8 batched one-hot x byte-plane
+    matmuls. Every number
     stays exact: byte chunks are exact in bf16, each one-hot row has ONE
     nonzero so f32 accumulation is a single exact product, and the u64
-    reassembles from two u32 halves via bitcast (no emulated 64-bit
-    shifts — the x64 shift lowering is unreliable on this stack)."""
+    reassembles from two u32 halves via bitcast (no 64-bit shifts)."""
     Pg, k = values.shape
     N = codes.shape[1]
     # byte planes bf16 [Pg, k, 8]: u32 halves via bitcast, then 32-bit
@@ -456,7 +453,7 @@ def onehot_lookup_u64(codes, values):
 
 
 def onehot_lookup_u16(codes, table):
-    """One-hot MXU lookup for small int tables: codes i32[Pg, N] in
+    """One-hot matmul lookup for small int tables: codes i32[Pg, N] in
     [0, k), table i32[Pg, k] with values < 2^16 (group ids: G <=
     MAX_GROUPS = 65536) -> i32[Pg, N]. Two exact byte-chunk matmuls."""
     Pg, k = table.shape
@@ -507,10 +504,10 @@ def membership_bool(vlo, vhi, klo, khi):
     ONE merged co-sort over [rows ∪ keys] (exec/join.
     _probe_bounds_merged): a row is a member iff its (lo, hi) key-rank
     bounds differ. Fixed-shape program for any K — the alternative
-    K-way EQ sweep traces O(K*width) graph ops and took >10 min to
-    COMPILE at K=2048 (r2 measured; same pathology re-found r2-cont in
-    the decoded-keys/limb IN paths: a 16k-pk update spent 23 s tracing
-    + 23 s compiling ONE filter)."""
+    K-way EQ sweep traces O(K*width) graph ops, so its trace and
+    compile time grow with K (the same holds for the decoded-keys/limb
+    IN paths, where a large pk update would compile one filter per
+    key count)."""
     from .join import _probe_bounds_merged
     lo, hi = _probe_bounds_merged(khi.reshape(-1), klo.reshape(-1),
                                   vhi.reshape(-1), vlo.reshape(-1))
@@ -531,11 +528,9 @@ def membership_words(vlo, vhi, keys):
 def group_decode_halves(g_sig: tuple, arrays: dict, W: int):
     """Decode a NARROW group to VALUE-domain u32 half pairs
     (lo u32[Pg, N], hi u32[Pg, N]). BITPACK/ALP stay entirely in u32
-    (decode_bitplanes_pair + carry-add of per-pack mins): the
-    emulated-u64 decode chain defeats XLA elementwise fusion and cost
-    4.8 ms at [64, 65536] w=41 (TPU-profiled r2) vs ~0.2 ms for the
-    fused u32 chains. Other schemes decode u64 (trusted add/cumsum ops)
-    and split via bitcast."""
+    (decode_bitplanes_pair + carry-add of per-pack mins), which stays
+    in fused u32 chains. Other schemes decode u64 (add/cumsum ops) and
+    split via bitcast."""
     scheme = Scheme(g_sig[0])
     width = g_sig[1]
     from ..encode import schemes as S
@@ -571,8 +566,8 @@ def group_decode_limbs(g_sig: tuple, arrays: dict, W: int):
         codes = S.decode_bitplanes_u32(arrays["planes"], width).astype(jnp.int32)
         dv = arrays["values"].transpose(1, 0, 2)
         if nlimbs <= 2 and dv.shape[2] <= _MXU_LOOKUP_MAX_K:
-            # MXU one-hot lookup (see group_decode_keys): take_along_axis
-            # at [Pg, N] is the ~30x gather pathology
+            # one-hot matmul lookup (see group_decode_keys) instead of a
+            # take_along_axis gather at [Pg, N]
             u = _limbs_to_u64(arrays["values"])
             keys = onehot_lookup_u64(codes, u)
             halves = jax.lax.bitcast_convert_type(keys, jnp.uint32)

@@ -6,7 +6,7 @@ TODO (internal/query/plan.go:26-34) — this operator EXCEEDS reference
 parity per the BASELINE north star (config #3: group-by account with
 sum/min/max over decimal balances).
 
-TPU-first design: group ids are materialized per row from the compressed
+Design: group ids are materialized per row from the compressed
 form without a hash table —
 - DICT packs: per-pack code -> global-group LUT built on the host from the
   per-pack dictionaries (host knows every dict; the union IS the group
@@ -114,7 +114,7 @@ def plan_groups(dseg: D.DeviceSegment, fname: str,
                      and int(global_keys[-1]) - int(global_keys[0]) + 1 == G)
             if dense:
                 # gid = key - min: pure elementwise (searchsorted on
-                # [P*N] rows is gather-bound, ~100x slower on TPU)
+                # [P*N] rows is gather-bound)
                 modes.append(("range", int(global_keys[0])))
             else:
                 modes.append(("search", global_keys.astype(np.uint64)))
@@ -127,8 +127,7 @@ def plan_buckets(dseg: D.DeviceSegment, fname: str, t0: int, interval: int,
     [0, G) with out-of-range rows -> bin G (dropped). The series layer
     (knoxdb_tpu/series.py) builds bucket keys t0 + i*interval.
 
-    r4 fast paths (the u64-EMULATED division was 3.58 ms of the 10.7 ms
-    series program — probes/series_profile.py stage profile): when the
+    Fast paths that avoid a u64-EMULATED division: when the
     in-range rel domain G*interval fits 31 bits the gid computes from
     u32 halves with a u32 divide ("bucket32"), and a power-of-two
     interval becomes a STATIC shift baked into the mode tag
@@ -218,8 +217,8 @@ def row_gids(mode_tags: tuple, gsigs: tuple, gidxs: tuple,
                 .astype(jnp.int32)
             lut = gconsts[gi]
             if lut.shape[1] <= D._MXU_LOOKUP_MAX_K:
-                # one-hot MXU lookup, not a [Pg, N] gather (~30x slower
-                # on TPU; exec/device.onehot_lookup_u16)
+                # one-hot matmul lookup, not a [Pg, N] gather
+                # (exec/device.onehot_lookup_u16)
                 gid = D.onehot_lookup_u16(codes, lut)
             else:
                 gid = jnp.take_along_axis(lut, codes, axis=1)
@@ -227,12 +226,11 @@ def row_gids(mode_tags: tuple, gsigs: tuple, gidxs: tuple,
             gid = jnp.broadcast_to(gconsts[gi][:, None],
                                    (gconsts[gi].shape[0], W * 32))
         elif tag.startswith("bucket32"):
-            # 32-BIT bucket gids (r4): rel = key - t0 via u32 borrow
+            # 32-BIT bucket gids: rel = key - t0 via u32 borrow
             # halves; in-range rels fit 31 bits (plan-guaranteed), so
             # the divide is a native u32 op — or a STATIC shift when
-            # the interval is a power of two (tag "bucket32s:<k>").
-            # The u64-emulated divide this replaces cost 3.58 ms per
-            # 4.2M rows (probes/series_profile.py).
+            # the interval is a power of two (tag "bucket32s:<k>") —
+            # in place of an emulated u64 divide.
             t0, iv = gconsts[gi]
             lo, hi = D.group_decode_halves(gsig, arrs, W)
             th = jax.lax.bitcast_convert_type(t0, jnp.uint32)
@@ -258,9 +256,9 @@ def row_gids(mode_tags: tuple, gsigs: tuple, gidxs: tuple,
             gid = jnp.where(below, jnp.int32(-1), gid)
         elif tag == "range":
             gmin = gconsts[gi]
-            # u32 borrow arithmetic on decoded halves — the u64 decode
-            # chain is fusion-hostile (TPU-profiled r2). keys < gmin
-            # wraps diff_hi to nonzero, so inb covers both bounds.
+            # u32 borrow arithmetic on decoded halves (no u64 decode
+            # chain). keys < gmin wraps diff_hi to nonzero, so inb
+            # covers both bounds.
             lo, hi = D.group_decode_halves(gsig, arrs, W)
             gh = jax.lax.bitcast_convert_type(gmin, jnp.uint32)
             diff_lo = lo - gh[0]
@@ -284,8 +282,7 @@ def row_gids(mode_tags: tuple, gsigs: tuple, gidxs: tuple,
 def f64_to_keyform(vf):
     """f64 VALUES -> order-preserving u64 keyform (inverse of
     keyform_to_f64's float branch; utils/limbs.to_keyform device form).
-    All bit twiddling runs on u32 halves — emulated u64 shifts are
-    unreliable in some fusion contexts on this stack (CLAUDE.md)."""
+    All bit twiddling runs on u32 halves."""
     h = jax.lax.bitcast_convert_type(vf, jnp.uint32)   # [..., 2] lo, hi
     lo, hi = h[..., 0], h[..., 1]
     sign = (hi >> jnp.uint32(31)) != 0
@@ -531,30 +528,21 @@ def group_ts_runs(gids, mask_words, ts_keys, val_keys, G: int, bias):
             i_min, i_max, i_n, i_sum, i_sumsq)
 
 
-MXU_MAX_G = 65536    # one-hot path ceiling == MAX_GROUPS since r5: the
-#                      multi-pass Pallas kernel (_group_pallas, 8192
-#                      groups/pass) beats the sort path at every legal G
-#                      (TPU-measured probes/pg_bigG.py: G=65536 mp-vec
-#                      ~90 M vs sort 4 M rows/s; the sort's [P, G+1]
-#                      boundary gathers scale with G)
-_MXU_TILE = 8192     # rows per matmul step (15 * tile < 2^31: i32-exact;
-#                      bigger tiles amortize the scan-step overhead)
+MXU_MAX_G = 65536    # one-hot path ceiling == MAX_GROUPS
+_MXU_TILE = 8192     # rows per matmul step (15 * tile < 2^31: i32-exact)
 _MXU_FACTORED_MIN_G = 192   # below this the flat one-hot moves less data
-_MXU_H = 128         # factored hi-bin count = MXU output tile rows
+_MXU_H = 128         # factored hi-bin count
 # factored-path rows per scan step: the f32 exactness ceiling is
 # 255 * T < 2^24 (byte-chunk partial sums accumulate in f32), so 65536
-# is the largest legal power of two; bigger tiles = fewer scan steps =
-# less per-step overhead (measured dominant at 8192). Env knob for
-# on-TPU sweeps.
-_MXU_FTILE = int(__import__("os").environ.get("KNOX_MXU_FTILE", "65536"))
+# is the largest legal power of two; bigger tiles = fewer scan steps
+_MXU_FTILE = 65536
 
 
 def _value_halves(value_keys, bias):
     """(lo, hi) u32 value halves with the chunk_plan bias subtracted.
     Accepts either a (lo, hi) u32 pair (exec/device.group_decode_halves
     — the fused u32 decode path) or a u64 array (bitcast-split). The
-    bias subtract runs in u32 borrow arithmetic: emulated u64 subtract
-    chains are fusion-hostile on this stack (CLAUDE.md x64 hazard)."""
+    bias subtract runs in u32 borrow arithmetic."""
     if isinstance(value_keys, tuple):
         vlo, vhi = value_keys
     else:
@@ -570,8 +558,7 @@ def _value_halves(value_keys, bias):
 
 def square_halves(rlo):
     """EXACT r^2 as (lo, hi) u32 halves for r = rlo < 2^32, using ONLY
-    32-bit multiplies/shifts of 16-bit limbs (the emulated u64
-    multiply/shift lowering is unreliable on this stack — CLAUDE.md):
+    32-bit multiplies/shifts of 16-bit limbs:
     r = a + 2^16 b  =>  r^2 = a^2 + 2^17 ab + 2^32 b^2."""
     a = rlo & jnp.uint32(0xFFFF)
     b = rlo >> jnp.uint32(16)
@@ -586,10 +573,10 @@ def square_halves(rlo):
 
 
 def chunk_plan(fstats) -> tuple[int, int]:
-    """(n_chunks, bias) for the MXU group kernels from a column's zone
+    """(n_chunks, bias) for the one-hot group kernels from a column's zone
     maps: values rebased by `bias` fit n_chunks*8 bits, so the one-hot
-    chunk matrix shrinks from 8 byte columns to n_chunks (one-hot HBM
-    traffic and MXU MACs scale with it — signed keyforms carry a 2^63
+    chunk matrix shrinks from 8 byte columns to n_chunks (one-hot
+    traffic and matmul work scale with it — signed keyforms carry a 2^63
     offset that otherwise forces all 8). Host combine restores exact
     sums via sum += bias * count. Falls back to (8, 0) when stats are
     missing or wide (object min/max)."""
@@ -606,22 +593,18 @@ def chunk_plan(fstats) -> tuple[int, int]:
 
 def _group_mxu_factored(gids, mask_words, value_keys, G: int,
                         n_chunks: int = 8, bias=None):
-    """Two-level one-hot MXU group (count, sum): gid = hi*L + lo.
+    """Two-level one-hot group (count, sum): gid = hi*L + lo.
 
-    The flat kernel's floor is the materialized [T, G] one-hot — 2*G
-    bytes/row of HBM traffic (~2 KB at G=1000 -> ~300 M rows/s
-    measured). Factoring the group id over a fixed H=128 hi axis and an
-    L = 2^ceil(log2(G/H)) lo axis turns the aggregation into ONE
+    The flat kernel's one-hot is [T, G] — 2*G bytes/row if it is
+    materialized. Factoring the group id over a fixed H=128 hi axis and
+    an L = 2^ceil(log2(G/H)) lo axis turns the aggregation into ONE
     [H, T] @ [T, L*9] bf16 matmul per tile whose output [H, L*9]
     scatters nothing: entry (h, l*9+c) accumulates chunk c of rows with
-    gid == h*L + l. Traffic drops to 2*H + 18*L bytes/row (~400 B at
-    G=1000, 5x less); H=128 exactly fills the MXU output tile so the
-    padding a smaller hi axis would waste is avoided.
+    gid == h*L + l. Operand traffic drops to 2*H + 18*L bytes/row.
 
-    Exactness: per-tile f32 entries <= 255 * 8192 < 2^24; cross-tile
-    accumulation is u64 ADDS only (emulated u64 shift/multiply is
-    unreliable on this stack — byte recombination on the HOST,
-    mxu_chunk_sums). Same contract as group_aggregate_mxu: count/sum
+    Exactness: per-tile f32 entries <= 255 * 65536 < 2^24; cross-tile
+    accumulation is u64 ADDS only, byte recombination on the HOST
+    (mxu_chunk_sums). Same contract as group_aggregate_mxu: count/sum
     only, mn/mx are empty sentinels."""
     L = 1
     while _MXU_H * L < G:
@@ -688,156 +671,80 @@ def _group_mxu_factored(gids, mask_words, value_keys, G: int,
     return counts, chunks, mn, mx
 
 
-def _pallas_group_geometry(G: int):
-    """(H, L) decomposition for the VMEM one-hot kernels: H=128 fills
-    one MXU output tile; L doubles until H*L >= G; past L=32 the m2
-    tile would blow the VMEM budget, so the hi axis doubles to 256
-    instead (covers G <= 8192, TPU-validated r2-cont)."""
+def _group_triton(gids, mask_words, value_keys, G: int,
+                  n_chunks: int = 8, bias=None, interpret: bool = False):
+    """The factored one-hot group (count, sum) through the Triton kernel
+    (ops/pallas_group.py): one-hots built in registers, i32 per-split
+    partials out, u64-add accumulation here. Same (counts, chunks, mn,
+    mx) contract as the XLA paths."""
     from ..ops import pallas_group as PG
-    H = PG.H_BINS
-    L = 1
-    while H * L < G:
-        L <<= 1
-    if L > 32:
-        H, L = 256, L >> 1
-    return H, L
-
-
-def _group_pallas(gids, mask_words, value_keys, G: int,
-                  n_chunks: int = 8, bias=None):
-    """Pallas fused factored group kernel (ops/pallas_group.py): one-hot
-    operands built IN VMEM, f32 tile partials out; u64-add accumulation
-    here. Same (counts, chunks, mn, mx) contract as the MXU paths.
-
-    r5 MULTI-PASS for G > 8192 (the G-cliff, VERDICT r4 next-#3): pass
-    p re-runs the SAME (H=256, L=32) kernel on gid - p*8192 — rows
-    outside the pass's sub-range shift to a negative (or >= H) hi and
-    match no iota column, so they self-exclude with no extra masking.
-    TPU-measured (probes/pg_bigG.py): 708 M rows/s at G=8192 (vs the
-    229 M XLA factored / 30 M sort), ~8-pass G=65536 far above the
-    17 M XLA / 4 M sort alternatives."""
-    from ..config import is_tpu
-    from ..ops import pallas_group as PG
-    if not is_tpu() and getattr(getattr(gids, "aval", None), "vma", None):
-        # interpret-mode pallas under shard_map trips a JAX
-        # hlo_interpreter vma bug (r4 probe); CPU has no Mosaic anyway —
-        # the SPMD-pallas question is a TPU question. XLA kernel there.
-        return _group_mxu_factored(gids, mask_words, value_keys, G,
-                                   n_chunks, bias)
-    C = n_chunks
-    H, L = _pallas_group_geometry(min(G, 8192))
-    GP = H * L                         # groups per pass (>= G when one
-    NP = max(1, -(-G // GP))           # pass suffices; >=1 guards G=0)
-    shift = L.bit_length() - 1
-    SENT = NP * GP
-
+    L, ncp = PG.geometry(G, n_chunks)
+    SENT = PG.H_BINS * L
     mask = bs.unpack_mask(mask_words)
     ok = mask & (gids >= 0) & (gids < G)
     gid = jnp.where(ok, gids, SENT).reshape(-1).astype(jnp.int32)
     vlo, vhi = _value_halves(value_keys, bias)
     vlo = jnp.where(ok, vlo, jnp.uint32(0)).reshape(-1)
     vhi = jnp.where(ok, vhi, jnp.uint32(0)).reshape(-1)
-    accs = []
-    for p in range(NP):
-        gp = gid - jnp.int32(p * GP) if p else gid
-        parts = PG.fused_group_partials(gp, vlo, vhi, min(G, GP),
-                                        L, shift, n_chunks=C,
-                                        interpret=not is_tpu(), H=H)
-        acc = parts.astype(jnp.uint32).astype(jnp.uint64).sum(axis=0)
-        accs.append(acc.reshape(H * L, C + 1))
-    acc2 = jnp.concatenate(accs, axis=0) if NP > 1 else accs[0]
-    counts = acc2[:G, C].astype(jnp.int64)
-    chunks = tuple(acc2[:G, c] for c in range(C))
+    parts = PG.group_partials(gid, vlo, vhi, G, n_chunks,
+                              interpret=interpret)
+    acc = parts.astype(jnp.uint64).sum(axis=0).reshape(PG.H_BINS * L, ncp)
+    counts = acc[:G, n_chunks].astype(jnp.int64)
+    chunks = tuple(acc[:G, c] for c in range(n_chunks))
     mn = jnp.full(G, 0xFFFFFFFFFFFFFFFF, jnp.uint64)
     mx = jnp.zeros(G, jnp.uint64)
     return counts, chunks, mn, mx
 
 
 def group_moments_mxu(gids, mask_words, rpair, qpair, G: int,
-                      C1: int, C2: int, allow_pallas: bool = True):
-    """Exact MXU moments: (counts i64[G], chunks1, chunks2) where
+                      C1: int, C2: int, family: str = "xla"):
+    """Exact one-hot moments: (counts i64[G], chunks1, chunks2) where
     chunks1/chunks2 are byte-chunk u64[G] tuples of the value and the
-    SQUARE sums. One fused Pallas pass when eligible (r4 — the one-hot
-    builds amortize over both moment halves, probes/series_profile.py);
-    two group_aggregate_mxu passes otherwise."""
-    from ..config import is_tpu, use_pallas_group
-    from ..ops import pallas_group as PG
-    rlo, rhi = rpair
-    qlo, qhi = qpair
-    H, L = _pallas_group_geometry(G)
-    under_shard_map = getattr(getattr(gids, "aval", None), "vma", None)
-    eligible = (allow_pallas and use_pallas_group() and L <= 32
-                and _MXU_FACTORED_MIN_G <= G
-                and not (not is_tpu() and under_shard_map))
-    if not eligible:
-        c1, ch1, _, _ = group_aggregate_mxu(gids, mask_words, rpair, G,
-                                            allow_pallas=allow_pallas,
-                                            n_chunks=C1)
-        _c2, ch2, _, _ = group_aggregate_mxu(gids, mask_words, qpair, G,
-                                             allow_pallas=allow_pallas,
-                                             n_chunks=C2)
-        return c1, ch1, ch2
-    shift = L.bit_length() - 1
-    SENT = H * L
-    mask = bs.unpack_mask(mask_words)
-    ok = mask & (gids >= 0) & (gids < G)
-    gid = jnp.where(ok, gids, SENT).reshape(-1).astype(jnp.int32)
-    z = jnp.uint32(0)
-    a = jnp.where(ok, rlo, z).reshape(-1)
-    b = jnp.where(ok, rhi, z).reshape(-1)
-    c = jnp.where(ok, qlo, z).reshape(-1)
-    d = jnp.where(ok, qhi, z).reshape(-1)
-    parts = PG.fused_group_moments_partials(
-        gid, a, b, c, d, G, L, shift, C1, C2,
-        interpret=not is_tpu(), H=H)
-    acc = parts.astype(jnp.uint32).astype(jnp.uint64).sum(axis=0)
-    NC = C1 + C2 + 1
-    acc3 = acc.reshape(H, L, NC)
-    counts = acc3[:, :, NC - 1].reshape(-1)[:G].astype(jnp.int64)
-    ch1 = tuple(acc3[:, :, i].reshape(-1)[:G] for i in range(C1))
-    ch2 = tuple(acc3[:, :, C1 + i].reshape(-1)[:G] for i in range(C2))
-    return counts, ch1, ch2
+    SQUARE sums — two group_aggregate_mxu passes."""
+    c1, ch1, _, _ = group_aggregate_mxu(gids, mask_words, rpair, G,
+                                        n_chunks=C1, family=family)
+    _c2, ch2, _, _ = group_aggregate_mxu(gids, mask_words, qpair, G,
+                                         n_chunks=C2, family=family)
+    return c1, ch1, ch2
 
 
 def group_aggregate_mxu(gids, mask_words, value_keys, G: int,
-                        allow_pallas: bool = True, n_chunks: int = 8,
-                        bias=None):
-    """Per-group exact (count, sum) via ONE-HOT MXU MATMULS (bf16).
+                        n_chunks: int = 8, bias=None, family: str = "xla"):
+    """Per-group exact (count, sum) via ONE-HOT MATMULS (bf16 operands,
+    f32 accumulation).
 
     The sort-based path (group_aggregate) moves every row through a
-    3-operand sort — correct but memory-bound at ~140 M rows/s. For
-    G <= MXU_MAX_G a [G, T] bf16 one-hot matmul per row tile computes
-    [G, 9] partials (8 exact byte chunks + count); per-tile f32
-    accumulations stay exact (255 * 8192 < 2^24) and cross-tile
-    accumulation is u64 ADDS only (the emulated u64 SHIFT/MULTIPLY
-    lowering is unreliable on this stack — measured round 2 — so byte
-    recombination happens on the HOST, mxu_chunk_sums). n_chunks/bias
-    (from chunk_plan zone-map stats) shrink the chunk matrix when the
-    column's rebased range fits fewer than 8 bytes.
+    3-operand sort. For G <= MXU_MAX_G a [G, T] bf16 one-hot matmul per
+    row tile computes [G, 9] partials (8 exact byte chunks + count);
+    per-tile f32 accumulations stay exact (255 * 8192 < 2^24) and
+    cross-tile accumulation is u64 ADDS only; byte recombination happens
+    on the HOST (mxu_chunk_sums). n_chunks/bias (from chunk_plan
+    zone-map stats) shrink the chunk matrix when the column's rebased
+    range fits fewer than 8 bytes. Every dot here is a bf16 one-hot
+    times bf16 byte chunks with preferred_element_type=float32, so no
+    float32 matmul (and no TF32 rounding) exists on the path.
 
-    Variants MEASURED on v5e at G=1000 (round 2): flat bf16 302 M
-    rows/s, flat int8 262 M, factored sqrt(G)-one-hot 168 M (32x32
-    output tiles use ~6% of the 128x128 systolic array). Flat bf16 won;
-    the cost floor is the materialized one-hot (G bytes/row of HBM
-    traffic). Returns (counts i64[G], chunks 8-tuple of u64[G], mn, mx)
-    with mn/mx EMPTY sentinels — callers choose this path only when no
-    min/max aggregate is requested; sum[g] = sum_c chunks[c][g] << 8c.
-
+    Returns (counts i64[G], chunks tuple of u64[G], mn, mx) with mn/mx
+    EMPTY sentinels — callers choose this path only when no min/max
+    aggregate is requested; sum[g] = sum_c chunks[c][g] << 8c.
     For G >= _MXU_FACTORED_MIN_G the two-level factored kernel
-    (_group_mxu_factored) moves ~5x less HBM traffic and takes over;
-    by DEFAULT (config.use_pallas_group; KNOX_NO_PALLAS_GROUP=1 kills)
-    the Pallas VMEM-one-hot kernel replaces it outside shard_map —
-    callers pass allow_pallas=False there (Mosaic under shard_map is
-    untested on this stack). TPU-measured r2: Pallas 1.27-1.29 G
-    rows/s vs 0.50 G XLA factored at G=1000, 4.2M rows.
+    (_group_mxu_factored) moves less data and takes over. family is the
+    caller's kernel family (config.kernel_family()): "triton" runs every
+    G through the Triton kernel (_group_triton) instead; callers inside
+    shard_map pass "xla".
     """
+    if family == "triton":
+        return _group_triton(gids, mask_words, value_keys, G, n_chunks,
+                             bias)
     if G >= _MXU_FACTORED_MIN_G:
-        from ..config import use_pallas_group
-        if allow_pallas and use_pallas_group():
-            return _group_pallas(gids, mask_words, value_keys, G,
-                                 n_chunks, bias)
         return _group_mxu_factored(gids, mask_words, value_keys, G,
                                    n_chunks, bias)
+    return _group_mxu_flat(gids, mask_words, value_keys, G, n_chunks, bias)
+
+
+def _group_mxu_flat(gids, mask_words, value_keys, G: int, n_chunks: int,
+                    bias):
+    """Flat one-hot group (count, sum): one [G, T] one-hot per tile."""
     C = n_chunks
     mask = bs.unpack_mask(mask_words)
     ok = mask & (gids >= 0) & (gids < G)
@@ -867,9 +774,8 @@ def group_aggregate_mxu(gids, mask_words, value_keys, G: int,
     gm = gid.reshape(B, T)
     groups = jnp.arange(G, dtype=jnp.int32)
 
-    # TPU x64-emulation hazard: the scan carry is a TUPLE of 1-D u64
-    # vectors — each updated from a 1-D slice of the f32 matmul result
-    # (slice FIRST, then convert).
+    # the scan carry is a TUPLE of 1-D u64 vectors — each updated from
+    # a 1-D slice of the f32 matmul result (slice FIRST, then convert)
     def step(carry, xs):
         g_t, c_t = xs
         oneh = (g_t[None, :] == groups[:, None]).astype(jnp.bfloat16)
@@ -916,19 +822,16 @@ def group_aggregate(gids, mask_words, value_keys, G: int):
     Returns (counts i64[G], sum_lo u64[G], sum_hi u64[G], min u64[G],
     max u64[G]) — sums split so host recombination is exact.
 
-    Design note: jax.ops.segment_sum lowers to scatter-adds that run
-    ~1000x below bandwidth on TPU. Instead each pack sorts rows by
-    (gid, value) — stable two-pass argsort — then group partials fall out
-    of cumsum differences at searchsorted boundaries, and min/max are the
-    boundary elements. Everything is sorts/cumsums/gathers: the shapes
-    XLA:TPU handles at speed."""
+    Design note: each pack sorts rows by (gid, value) — one variadic
+    sort — then group partials fall out of cumsum differences at
+    searchsorted boundaries, and min/max are the boundary elements.
+    Everything is sorts/cumsums/gathers, with no scatter."""
     mask = bs.unpack_mask(mask_words)
     ok = mask & (gids >= 0) & (gids < G)    # out-of-domain rows -> bin G
     gid = jnp.where(ok, gids, G)            # i32[P, N]
 
     # ONE variadic sort carries the value limbs as co-sorted operands —
-    # XLA's SortOp moves payload with the keys, avoiding [P, N] gathers
-    # (take_along_axis at this shape runs ~30x slower than the sort).
+    # XLA's SortOp moves payload with the keys, avoiding [P, N] gathers.
     # Keys (gid, hi, lo) are all 32-bit: rows ordered by (gid, value).
     hi32 = (value_keys >> jnp.uint64(32)).astype(jnp.uint32)
     lo32 = value_keys.astype(jnp.uint32)

@@ -8,7 +8,8 @@ a sort+probe join in the keyform domain:
 - build side sorted once (payload co-sort / host for tiny sides)
 - probe bounds, duplicate expansion and rank->row translation are ALL
   payload-carrying co-sorts + log-doubling forward fills — zero gathers
-  and zero searchsorteds (both are far below bandwidth on TPU)
+  and zero searchsorteds (both ran far below bandwidth on the
+  accelerator this was first built for)
 
 The multi-chip path (parallel/shuffle.py) hash-partitions both sides by
 key over the mesh with all_to_all and runs this same kernel per shard.
@@ -152,8 +153,8 @@ def join_pairs_device(lkeys, rkeys, how: JoinType = JoinType.INNER,
 
 def join_count_device(lkeys, rkeys, how: JoinType = JoinType.INNER):
     """Match-pair count (phase 1; one scalar host fetch). Sort-only:
-    searchsorted is ~20 gather passes and a 1M-row gather costs ~26 ms
-    on this stack (TPU-profiled round 2) vs ~1-4 ms per co-sort."""
+    searchsorted is ~20 gather passes, and gathers were the slow
+    primitive where this was first built."""
     import jax
     import jax.numpy as jnp
     rh = jax.lax.bitcast_convert_type(rkeys, jnp.uint32)
@@ -168,8 +169,8 @@ def join_count_device(lkeys, rkeys, how: JoinType = JoinType.INNER):
 
 def _fill_forward_max(vals):
     """Inclusive running maximum via log-doubling elementwise maximum
-    (lax.cummax's reduce-window lowering overflows scoped vmem on this
-    libtpu — CLAUDE.md)."""
+    (the elementwise form stays at bandwidth; lax.cummax lowers to a
+    reduce-window)."""
     import jax.numpy as jnp
     n = vals.shape[0]
     sh = 1
@@ -199,13 +200,9 @@ def merge_sorted_stable(na: int, key, *payloads):
     key[na:] with payload channels (equal keys keep concatenation
     order, which lax.sort's stability guarantees).
 
-    r3 TPU finding (probes/join_phase_probe.py): the hand-rolled
-    bitonic-merge network this used to be is ~15x SLOWER than a full
-    lax.sort on this stack — each compare-exchange pass reshapes at
-    stride s, and sub-lane strides force relayouts (61.7 ms vs 8.7 ms
-    for 4.2M rows x 3 channels). XLA's own sort stages its passes
-    through VMEM; log-pass arithmetic does not beat it from HBM. Kept
-    as an API (callers say "merge") but implemented AS the sort."""
+    A hand-rolled bitonic-merge network reshapes at stride s in every
+    compare-exchange pass; XLA's sort is used instead. Kept as an API
+    (callers say "merge") but implemented AS the sort."""
     import jax
     srt = jax.lax.sort((key,) + payloads, dimension=0, num_keys=1)
     return srt
@@ -214,8 +211,8 @@ def merge_sorted_stable(na: int, key, *payloads):
 def _probe_bounds_merged(rs_hi, rs_lo, qk_hi, qk_lo):
     """BOTH probe bounds (lo = builds strictly below, hi = builds <=)
     from ONE merged co-sort + one restore sort — halves the rank-phase
-    sort count vs two separate rank co-sorts (sorts dominate the join;
-    measured ~20 ms per 2M-row 4-operand sort on v5e).
+    sort count vs two separate rank co-sorts (sorts dominate the
+    join).
 
     Builds sort before equal-key queries, so at a query's slot the
     exclusive build count IS hi; lo is the build count at the slot's
@@ -242,9 +239,7 @@ def _probe_bounds_merged(rs_hi, rs_lo, qk_hi, qk_lo):
     start = (pos == 0) | (kh_s != jnp.roll(kh_s, 1)) \
         | (kl_s != jnp.roll(kl_s, 1))
     # forward-fill run-start build counts via log-doubling max:
-    # lax.cummax lowers to a 128-window reduce-window that overflows the
-    # 16 MB scoped-vmem limit on this libtpu (measured: compile fails at
-    # ANY length); ~log2(M) elementwise maximum passes stay at bandwidth
+    # ~log2(M) elementwise maximum passes stay at bandwidth
     lo_all = jnp.where(start, bb, 0)
     sh = 1
     while sh < M:
@@ -296,8 +291,8 @@ def _merged_sort_tagged(lkeys, rkeys, keys32: bool):
     """ONE merged sort of [build ∪ probe] with the side tag riding bit
     31 of the id operand (builds sort first within a key run). Returns
     (key_limbs_sorted tuple, pidt_s u32[M]). keys32=True drops the hi
-    limb from the sort operands (r3 probe: each operand costs ~15% of
-    the sort; u32 join keys are the common case)."""
+    limb from the sort operands (each operand adds to the sort's
+    traffic; u32 join keys are the common case)."""
     import jax
     import jax.numpy as jnp
     Nr = rkeys.shape[0]
@@ -338,10 +333,10 @@ def join_pairs_core_shift(lkeys, rkeys, S: int = 16,
     join_pairs_core (the cap-retry expansion core). total is the
     EMITTED pair count (== true count iff maxneed <= S).
 
-    r3 probe numbers (1M x 1M u64): the general expansion core costs 3
-    population sorts + 2 output-scale sorts ~= 40 ms; this core is one
-    ~4-5 ms sort + ~2 ms of shifts/fills. Reference semantics: merge
-    join join.go:536-556 with dup expansion."""
+    The general expansion core costs 3 population sorts + 2
+    output-scale sorts; this core is one sort plus elementwise shifts
+    and fills. Reference semantics: merge join join.go:536-556 with dup
+    expansion."""
     import jax
     import jax.numpy as jnp
     Nl = lkeys.shape[0]
@@ -420,8 +415,7 @@ def _merged_bounds_inorder(lkeys, rkeys, keys32: bool = False):
         start = start | (k != jnp.roll(k, 1))
     # builds sort before equal-key probes, so at a probe slot the
     # exclusive build count IS hi; lo is the run-start build count,
-    # forward-filled (log-doubling max — lax.cummax overflows scoped
-    # vmem on this libtpu, CLAUDE.md)
+    # forward-filled (log-doubling max, _fill_forward_max)
     lo = _fill_forward_max(jnp.where(start, bb, 0))
     return is_q, pid, lo, bb
 
@@ -436,9 +430,8 @@ def join_pairs_core(lkeys, rkeys, cap: int,
     ORDER is unspecified (key-clustered). total is always the TRUE
     pair count even when cap truncates.
 
-    GATHER-FREE and (r3) RESTORE-FREE formulation. Round-2 profiling:
-    a 1M-row gather costs ~26 ms on this stack vs ~1-4 ms per sort
-    operand — every cross-array lookup is a payload-carrying co-sort +
+    GATHER-FREE and (r3) RESTORE-FREE formulation: every cross-array
+    lookup is a payload-carrying co-sort +
     log-doubling forward fill. Round 3 drops the three probe/slot-order
     restore sorts entirely (output order is free) — THREE full sorts +
     TWO bitonic merges total:
@@ -452,8 +445,8 @@ def join_pairs_core(lkeys, rkeys, cap: int,
       5. rank->build-id bitonic merge (build ranks ∪ slot ranks) +
          forward fill — replaces take(order, rank)
 
-    All composites are 32-bit (u64 shifts are unreliable on this stack;
-    cap < 2^30 and Nl, Nr < 2^30 always hold for per-chip shards).
+    All composites are 32-bit (cap < 2^30 and Nl, Nr < 2^30 always hold
+    for per-chip shards).
     Reference semantics: merge join join.go:536-556 with dup expansion."""
     import jax
     import jax.numpy as jnp

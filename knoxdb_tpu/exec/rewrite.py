@@ -10,7 +10,7 @@ the compilation. This module prepares those constants each query:
   consumed by ops/bitslice.cmp_planes_rel.
 - DICT: predicates rewritten into per-pack CODE space via searchsorted on
   each pack's sorted dictionary — the fused dict matcher never touches the
-  value arrays at all (the TPU form of the reference's dict container
+  value arrays at all (the device form of the reference's dict container
   matcher, internal/encode/container.go:72-76).
 - RLE/RAW: u32 limb constants for the lexicographic limb compare.
 - CONST packs: fully decided on host -> bool verdict per pack.

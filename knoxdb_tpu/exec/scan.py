@@ -1,6 +1,6 @@
 """Segment scan executor: filter tree + aggregates -> one fused device pass.
 
-The TPU form of the reference's per-pack query loop
+The device form of the reference's per-pack query loop
 (/root/reference/internal/pack/table/reader.go:288-450 + operator/filter/
 match_core.go): where the reference walks packs one at a time through
 matcher dispatch, this executor compiles the WHOLE plan — every filter
@@ -41,7 +41,9 @@ from . import rewrite as RW
 
 __all__ = ["AggSpec", "ScanResult", "SegmentScanner"]
 
-_FULL = jnp.uint32(0xFFFFFFFF)
+# numpy, not jax, scalars: a module-level jax array would be captured by
+# every traced plan as a device constant argument
+_FULL = np.uint32(0xFFFFFFFF)
 
 
 @dataclass(frozen=True)
@@ -72,16 +74,15 @@ def _tree_desc(node: Node, leaf_index: dict) -> tuple:
 class SegmentScanner:
     """Executes filter+aggregate plans against one DeviceSegment."""
 
-    spmd = False    # ShardedScanner overrides; gates the Pallas fusion
-
     def __init__(self, dseg: D.DeviceSegment):
+        from ..config import kernel_family
         self.d = dseg
+        # kernel family of the group and series plans; set it to "xla"
+        # to run the plain path on a GPU (for comparison)
+        self.kernels = kernel_family()
         self._fns: dict = {}
         self._plan_sigs: dict = {}   # id(raw) -> full plan signature
         self._acache: dict = {}    # (tdesc, leaf values) -> uploaded args
-        self._fused_ops: dict = {}  # kernel operand cache; keys:
-        # bitpack (field, w, lo, hi) / dict (field, w, "dict",
-        # mode, value)
 
     # ------------------------------------------------------------ public --
 
@@ -100,9 +101,7 @@ class SegmentScanner:
 
         # upload cache: a REPEATED query re-uses the device copies of its
         # leaf constants and tristate overrides — each fresh jnp.asarray
-        # is a separate H2D transfer, and this harness's relay charges a
-        # flat ~25-30 ms per transfer (measured: repeated top-k calls
-        # spent 100+ ms re-uploading identical constants)
+        # is a separate host-to-device transfer
         try:
             akey = (tdesc, tuple(_leaf_cache_key(f)
                                  for f in leaves.values()))
@@ -148,12 +147,8 @@ class SegmentScanner:
 
         has_excl = exclude_words is not None
         has_incl = include_words is not None
-        # fusion state is part of the plan signature: use_pallas() is a
-        # live env read, and a cached fused fn expects the extra
-        # operand entry in consts
-        fuse = self._plan_fusion(tdesc, leaves, skip_leaf, aggs)
         sig = (d.sig(used), tdesc, tuple(skip_leaf), has_excl, has_incl,
-               tuple((a.op, a.field) for a in aggs), fuse,
+               tuple((a.op, a.field) for a in aggs),
                tuple(RW.leaf_group_static(leaves[i], g)
                      for i in range(len(leaves)) if not skip_leaf[i]
                      for g in d.column(leaves[i].field.name).groups))
@@ -170,62 +165,6 @@ class SegmentScanner:
         # different TREES must not share a compiled closure — the old
         # sigs omitted the mask plan and collided (r5 probe find)
         self._plan_sigs[id(raw)] = sig
-
-        # fused Pallas plan: bind the kernel's per-plane select-mask
-        # operands on the HOST (tiny numpy over P packs) and append them
-        # to the consts pytree — in-graph derivation from traced consts
-        # is the r3 wedge trigger (probes/scan_wedge_engine.py e1).
-        # Cached per (field, width, lo, hi): repeated queries re-use the
-        # device upload like every other leaf constant.
-        if fuse is not None:
-            def bind(fuse_i, fuse_f):
-                from ..ops import pallas_scan as PSC
-                fl = leaves[fuse_i]
-                g = d.column(fuse_f).groups[0]
-                fw = g.sig()[1]
-                if g.scheme == Scheme.DICT:
-                    # dict leaf: per-pack CODE ranges (r4 phase 2 —
-                    # bytes/int dictionaries are sorted, so value
-                    # predicates are code ranges; misses/empties are
-                    # the inverted (1, 0) interval, which the kernel
-                    # ladders satisfy for no row)
-                    vrep = fl.value_bytes if g.dict_bytes is not None \
-                        else (int(fl.key),
-                              int(getattr(fl, "key_hi", 0) or 0))
-                    if isinstance(vrep, list):
-                        vrep = tuple(vrep)
-                    okey = (fuse_f, fw, "dict", fl.mode, vrep)
-                    ops = self._fused_ops.get(okey)
-                    if ops is None:
-                        lo_a, hi_a = _dict_code_range_host(fl, g)
-                        lo_b, hi_b, flags = PSC.range_consts(
-                            np.zeros(g.npacks, np.uint64), lo_a, hi_a,
-                            fw)
-                        ops = (jnp.asarray(lo_b), jnp.asarray(hi_b),
-                               jnp.asarray(flags))
-                        if len(self._fused_ops) < 1024:
-                            self._fused_ops[okey] = ops
-                    return ops
-                lo_v, hi_v = _mode_to_range_host(
-                    fl.mode, int(fl.key),
-                    int(getattr(fl, "key_hi", 0) or 0))
-                okey = (fuse_f, fw, lo_v, hi_v)
-                ops = self._fused_ops.get(okey)
-                if ops is None:
-                    mk = np.array([d.seg.columns[fuse_f].packs[i].min_key
-                                   for i in g.idx], np.uint64)
-                    lo_b, hi_b, flags = PSC.range_consts(
-                        mk, np.uint64(lo_v), np.uint64(hi_v), fw)
-                    ops = (jnp.asarray(lo_b), jnp.asarray(hi_b),
-                           jnp.asarray(flags))
-                    if len(self._fused_ops) < 1024:
-                        self._fused_ops[okey] = ops
-                return ops
-            if fuse[0] == "multi":
-                consts = list(consts) + [tuple(bind(i, f)
-                                               for i, f in fuse[1])]
-            else:
-                consts = list(consts) + [bind(*fuse)]
 
         arrays = d.arrays_pytree(used)
         excl = (jnp.asarray(exclude_words),) if has_excl else ()
@@ -259,7 +198,7 @@ class SegmentScanner:
                     include_words=None):
         """STREAMING scan: yields ScanResult row batches one pack-window
         at a time (the reference's pull-operator pipeline,
-        operator/pipeline.go:26-38, re-shaped TPU-native: the filter
+        operator/pipeline.go:26-38, re-shaped for the device: the filter
         runs ONCE over the whole segment, then each window compacts and
         fetches only its own matches — host memory stays bounded by
         batch_packs * pack_size regardless of result size)."""
@@ -293,7 +232,7 @@ class SegmentScanner:
 
         Group domain comes from host metadata (dicts/zone maps); pass
         global_keys to align multiple segments on one domain. With
-        minmax=False and G <= MXU_MAX_G the one-hot MXU matmul kernel
+        minmax=False and G <= MXU_MAX_G the one-hot matmul kernel
         replaces the sort (exec/groupby.group_aggregate_mxu) — min/max
         outputs are then empty sentinels."""
         from . import groupby as GB
@@ -315,15 +254,17 @@ class SegmentScanner:
                         for gi, g in enumerate(d.column(f).groups)]
                     for f in agg_fields}
         gconsts = GB.gid_consts(gplan)
-        # stats-driven chunk shrink for the MXU kernels: n_chunks is a
+        # stats-driven chunk shrink for the one-hot matmul kernels: n_chunks is a
         # STATIC program shape (part of sig); the rebase bias is TRACED
         # (constants are never baked into the graph — CLAUDE.md)
         cplan = {f: (GB.chunk_plan(d.seg.stats.fields.get(f))
                      if use_mxu else (8, 0)) for f in agg_fields}
         biases = {f: jnp.uint64(cplan[f][1]) for f in agg_fields}
 
+        family = self.kernels
         sig = ("group", d.sig(used), group_field, tuple(agg_fields),
                mode_tags, gplan.G, exclude_words is not None, use_mxu,
+               family,
                tuple(cplan[f][0] for f in agg_fields),
                self._plan_sigs[id(mask_raw)])
         gfn = self._fns.get(sig)
@@ -334,9 +275,8 @@ class SegmentScanner:
                                    garrays[group_field], gconsts, d.W)
                 out = {}
                 for f in agg_fields:
-                    # MXU kernels take fused u32 half pairs (the
-                    # emulated-u64 decode chain costs ~5 ms/4.2M rows,
-                    # TPU-profiled r2); the sort kernel takes u64 keys
+                    # one-hot matmul kernels take fused u32 half pairs;
+                    # the sort kernel takes u64 keys
                     dec_one = (D.group_decode_halves if use_mxu
                                else D.group_decode_keys)
                     if len(agg_sigs[f]) == 1 and \
@@ -361,7 +301,8 @@ class SegmentScanner:
                     if use_mxu:
                         out[f] = GB.group_aggregate_mxu(
                             gids, mask, dec, gplan.G,
-                            n_chunks=cplan[f][0], bias=biases[f])
+                            n_chunks=cplan[f][0], bias=biases[f],
+                            family=family)
                     else:
                         out[f] = GB.group_aggregate(gids, mask, dec,
                                                     gplan.G)
@@ -429,11 +370,11 @@ class SegmentScanner:
 
         kspec = tuple((f, tuple(sorted(kinds[f]))) for f in fields)
 
-        # plan-static EXACT MXU moments gate: int fields whose rebased
+        # plan-static EXACT one-hot moments gate: int fields whose rebased
         # keyform range fits 4 byte chunks (r < 2^32, so r^2 is exact
         # u64 via 16-bit-limb u32 math — groupby.square_halves) ride
-        # TWO one-hot MXU passes instead of the 3-operand sort
-        # (~140 M rows/s ceiling); host recombines python-int-exact
+        # TWO one-hot matmul passes instead of the 3-operand sort;
+        # host recombines python-int-exact
         # moments. C/q_chunks shape the traced graph -> part of sig.
         mplan = {}
         for f in fields:
@@ -446,7 +387,7 @@ class SegmentScanner:
         # per-pack ALP decode constants: TRACED, not baked — XLA rewrites
         # division by a CONSTANT into reciprocal multiplication (1 ulp
         # off the correctly-rounded decode the encoder's round-trip gate
-        # verified); a runtime divisor keeps true division (measured r3)
+        # verified); a runtime divisor keeps true division
         alp_c = {}
         for f in used:
             for gi, g in enumerate(d.column(f).groups):
@@ -459,8 +400,9 @@ class SegmentScanner:
         alp_keys = tuple(sorted(alp_c))
         alp_vals = tuple(alp_c[k] for k in alp_keys)
 
+        family = self.kernels
         sig = ("series", d.sig(used), time_field, kspec, mode_tags,
-               gplan.G, exclude_words is not None, alp_keys,
+               gplan.G, exclude_words is not None, alp_keys, family,
                tuple(sorted((f, v[0], v[2]) for f, v in mplan.items())),
                self._plan_sigs[id(mask_raw)])
         sfn = self._fns.get(sig)
@@ -535,16 +477,9 @@ class SegmentScanner:
                         C_m, _gm, qC = mplan[f]
                         rlo, rhi = GB._value_halves(vk, mb[f])
                         qlo, qhi = GB.square_halves(rlo)
-                        # r4: BOTH moment halves from ONE fused Pallas
-                        # pass (group_moments_mxu — the one-hot builds
-                        # amortize; two Mosaic calls per program probed
-                        # stable, probes/series_profile.py; config
-                        # gate use_pallas_series) unless SPMD
-                        from ..config import use_pallas_series
-                        ap = (not self.spmd) and use_pallas_series()
                         c1, ch1, ch2 = GB.group_moments_mxu(
                             gids, mask, (rlo, rhi), (qlo, qhi),
-                            gplan.G, C_m, qC, allow_pallas=ap)
+                            gplan.G, C_m, qC, family=family)
                         out[(f, "moments")] = \
                             (c1,) + tuple(ch1) + tuple(ch2)
                     elif "moments" in fk:
@@ -609,160 +544,6 @@ class SegmentScanner:
                           key_limbs=None if kb else f.key_limbs,
                           key_bytes=kb)
 
-    _PALLAS_MODES = (FilterMode.RANGE, FilterMode.GT, FilterMode.GE,
-                     FilterMode.LT, FilterMode.LE, FilterMode.EQ)
-
-    def _fusable_col(self, fname: str, leaf_ok: bool = False):
-        """Single-group full-coverage column whose planes the fused
-        kernels can consume -> its device group, else None. Aggregates
-        need BITPACK value planes; LEAVES (leaf_ok=True) may also be
-        DICT groups — their code planes compare against per-pack
-        code-range constants (r4 phase 2; the reference's
-        matcher-on-dict-container fusion)."""
-        d = self.d
-        col = d.seg.columns.get(fname)
-        if col is None or col.field.type.is_float or col.wide:
-            return None
-        dcol = d.column(fname)
-        if len(dcol.groups) != 1 or dcol.groups[0].npacks != d.P:
-            return None
-        g = dcol.groups[0]
-        if g.scheme == Scheme.BITPACK:
-            return g
-        if leaf_ok and g.scheme == Scheme.DICT and g.sig()[1] > 0:
-            return g
-        return None
-
-    def _plan_fusion(self, tdesc, leaves, skip_leaf, aggs):
-        """Plan the Pallas scan fusion (the reference's matcher-on-
-        compressed-container idea, container.go:72-76, taken further).
-
-        r4 WHOLE-TREE form: every top-level AND leaf whose column is a
-        single-group narrow BITPACK (+ the agg columns) fuses into
-        ONE kernel — each column's planes stream HBM->VMEM exactly once
-        for compare AND aggregate, no intermediate XLA mask
-        materializations. r5: EVERY fusable aggregate rides the one
-        pass — sum/avg as per-plane popcounts, min/max as in-kernel
-        MSB-down tournaments — so the driver entry() shape
-        (count+sum+min+max) runs a single kernel. Greedy
-        width-descending leaf selection under the scoped-VMEM budget;
-        non-fusable leaves stay in the XLA rest mask. Returns
-        None | (leaf_i, field)  [legacy single-leaf kernel] |
-        ("multi", ((leaf_i, field), ...), (fields...),
-        ((field, want_sum, want_mm), ...))."""
-        import os
-
-        from ..config import use_pallas, use_pallas_maskonly
-        from ..ops import pallas_scan as PSC
-        d = self.d
-        if not use_pallas():
-            return None
-        if self.spmd:
-            # r5: Mosaic scan fusion UNDER shard_map — same flag family
-            # as the group kernel (probed r4); TPU only (interpret-mode
-            # pallas under shard_map trips the JAX hlo_interpreter vma
-            # bug, so CPU/virtual meshes keep the XLA two-pass sweep).
-            # Tile math runs on the DEVICE-LOCAL pack count.
-            from ..config import is_tpu, use_spmd_pallas
-            ndev = self.mesh.shape[self.axis]
-            if not (is_tpu() and use_spmd_pallas()) \
-                    or (d.P // ndev) % 8:
-                return None
-            P_tile = d.P // ndev       # per-shard pack count
-        else:
-            if d.P % 8:
-                return None
-            P_tile = d.P
-        top_leaves = []
-        if tdesc[0] == "leaf":
-            top_leaves = [tdesc]
-        elif tdesc[0] == "and":
-            top_leaves = [c for c in tdesc[1] if c[0] == "leaf"]
-        if not top_leaves:
-            return None
-        # fusable aggregate wants, in agg order: field -> [sum, minmax]
-        agg_want: dict[str, list] = {}
-        for a in aggs:
-            if not a.field or self._fusable_col(a.field) is None:
-                continue
-            if a.op in ("sum", "avg"):
-                agg_want.setdefault(a.field, [False, False])[0] = True
-            elif a.op in ("min", "max"):
-                agg_want.setdefault(a.field, [False, False])[1] = True
-        agg_f = next((f for f, e in agg_want.items() if e[0]), None)
-        if not agg_want and not use_pallas_maskonly():
-            # MASK-ONLY tree fusion (no fusable aggregate: count /
-            # group-by / top-k / stream / join-side plans). Default ON
-            # since r5 (r4 probe + soak round clean; config gate).
-            return None
-
-        def width_of(fname):
-            return self._fusable_col(fname, leaf_ok=True).sig()[1]
-
-        fusable = []
-        for c in top_leaves:
-            i = c[1]
-            fname = c[2]
-            if skip_leaf[i] or FilterMode(c[3]) not in self._PALLAS_MODES:
-                continue
-            if self._fusable_col(fname, leaf_ok=True) is None:
-                continue
-            fusable.append((i, fname))
-        if not fusable:
-            return None
-
-        single = next(((i, f) for i, f in fusable if f == agg_f), None)
-        if os.environ.get("KNOX_NO_PALLAS_TREE") == "1":
-            return single
-
-        # greedy under scoped VMEM: agg columns first (each saves a
-        # whole second XLA pass over its planes), then leaves
-        # widest-first; whatever doesn't fit falls back to XLA.
-        fields: list[str] = []
-        aspec = []
-        for f, (ws, wm) in agg_want.items():
-            nf = fields + [f]
-            if not PSC.tree_fits_vmem([width_of(x) for x in nf],
-                                      P_tile, d.W):
-                continue
-            fields = nf
-            aspec.append((f, ws, wm))
-        entries = []
-        for i, fname in sorted(fusable,
-                               key=lambda e: -width_of(e[1])):
-            nf = fields if fname in fields else fields + [fname]
-            if not PSC.tree_fits_vmem([width_of(x) for x in nf],
-                                      P_tile, d.W):
-                continue
-            fields = nf
-            entries.append((i, fname))
-        if not entries:
-            return single
-        if len(entries) == 1 and aspec == [(entries[0][1], True, False)]:
-            # sum-only single-column plan (cfg #1's shape): the
-            # r3-proven single-leaf kernel — identical traffic
-            return entries[0]
-        entries.sort()
-        return ("multi", tuple(entries), tuple(fields), tuple(aspec))
-
-    @staticmethod
-    def _drop_leaf(desc, i):
-        if desc[0] == "leaf":
-            return ("true",) if desc[1] == i else desc
-        if desc[0] == "and":
-            return ("and", tuple(SegmentScanner._drop_leaf(c, i)
-                                 for c in desc[1]))
-        return desc
-
-    @staticmethod
-    def _drop_leaves(desc, idxs):
-        if desc[0] == "leaf":
-            return ("true",) if desc[1] in idxs else desc
-        if desc[0] == "and":
-            return ("and", tuple(SegmentScanner._drop_leaves(c, idxs)
-                                 for c in desc[1]))
-        return desc
-
     def _build_fn(self, tdesc, leaves, skip_leaf, aggs, agg_fields,
                   has_excl=False, has_incl=False):
         d = self.d
@@ -816,95 +597,18 @@ class SegmentScanner:
                 out = (out | k) if kind == "or" else (out & k)
             return out
 
-        fuse = self._plan_fusion(tdesc, leaves, skip_leaf, aggs)
-        if fuse is not None:
-            from ..config import is_tpu
-            interp = not is_tpu()
-            if fuse[0] == "multi":
-                _tag, f_entries, f_fields, f_aspec = fuse
-                fuse_f = None
-                f_slots = tuple(f_fields.index(f) for _i, f in f_entries)
-                f_widths = tuple(d.column(f).groups[0].sig()[1]
-                                 for f in f_fields)
-                f_specs = tuple((f_fields.index(f), ws, wm)
-                                for f, ws, wm in f_aspec)
-                tdesc_rest = self._drop_leaves(
-                    tdesc, frozenset(i for i, _f in f_entries))
-            else:
-                fuse_i, fuse_f = fuse
-                fuse_width = d.column(fuse_f).groups[0].sig()[1]
-                tdesc_rest = self._drop_leaf(tdesc, fuse_i)
-
         def fn(arrays, consts, overrides, valid, excl=()):
-            if fuse is not None:
-                # one-pass Pallas kernel: each fused column's planes are
-                # read ONCE for predicate + aggregate (ops/pallas_scan).
-                # The kernel's per-plane select masks arrive PRE-BOUND
-                # from the host as the trailing consts entry (r3:
-                # deriving them in-graph from the traced range consts
-                # wedges the grant on the 2nd execution of any lax.scan-
-                # wrapped run of this program — scan_wedge_engine.py e1;
-                # host-bound operands are the probe-proven clean shape)
-                from ..ops import pallas_scan as PSC
-                rest = eval_node(tdesc_rest, arrays, consts, overrides,
-                                 valid) & valid
-                if has_excl:
-                    rest = rest & ~excl[0]
-                if has_incl:
-                    rest = rest & excl[1 if has_excl else 0]
-                fused_sum = {}
-                fused_mm = {}
-                if fuse[0] == "multi":
-                    # r4 whole-tree kernel, r5 multi-agg: ALL fused AND
-                    # leaves + EVERY fusable aggregate in one pass
-                    # (per-field planes deduped; sum popcounts + min/max
-                    # tournaments share each column's VMEM residency)
-                    planes_list = [arrays[f][0]["planes"]
-                                   for f in f_fields]
-                    mask, cnt, fparts = PSC.fused_tree_agg(
-                        planes_list, consts[-1], f_slots, rest,
-                        f_widths, f_specs, interpret=interp)
-                    for (fn_, _ws, _wm), part in zip(f_aspec, fparts):
-                        if "pcnt" in part:
-                            fused_sum[fn_] = {"pcnt": part["pcnt"],
-                                              "cnt": cnt}
-                        if "mnmx" in part:
-                            fused_mm[fn_] = {"mnmx": part["mnmx"],
-                                             "cnt": cnt}
-                else:
-                    garr = arrays[fuse_f][0]
-                    lo_b, hi_b, flags = consts[-1]
-                    mask, pcnt, cnt = PSC.fused_range_sum_masked(
-                        garr["planes"], lo_b, hi_b, flags, rest,
-                        fuse_width, interpret=interp)
-                    # per-plane popcounts go to the HOST for exact
-                    # python-int recombination (_combine_sum): the
-                    # x64-emulated u64 shift/multiply lowering on this
-                    # TPU stack is wrong in some fusion contexts
-                    # (measured round 2), while the i32 pcnt matrix
-                    # itself is verified bit-exact on chip
-                    fused_sum[fuse_f] = {"pcnt": pcnt, "cnt": cnt}
-                pack_counts = cnt
-            else:
-                mask = eval_node(tdesc, arrays, consts, overrides,
-                                 valid) & valid
-                if has_excl:
-                    mask = mask & ~excl[0]
-                if has_incl:
-                    mask = mask & excl[1 if has_excl else 0]
-                pack_counts = B.popcount_words(mask)
+            mask = eval_node(tdesc, arrays, consts, overrides,
+                             valid) & valid
+            if has_excl:
+                mask = mask & ~excl[0]
+            if has_incl:
+                mask = mask & excl[1 if has_excl else 0]
+            pack_counts = B.popcount_words(mask)
             parts = []
             for op, fname in agg_specs:
                 if op == "count" or not fname:
                     parts.append(None)
-                    continue
-                if fuse is not None and op in ("sum", "avg") \
-                        and fname in fused_sum:
-                    parts.append([fused_sum[fname]])
-                    continue
-                if fuse is not None and op in ("min", "max") \
-                        and fname in fused_mm:
-                    parts.append([fused_mm[fname]])
                     continue
                 col_parts = []
                 full_cov = (len(agg_groups[fname]) == 1
@@ -984,16 +688,6 @@ class SegmentScanner:
         total = 0
         cnt = 0
         for part, g in zip(parts, groups):
-            if isinstance(part, dict):    # fused Pallas pcnt form
-                pc = np.asarray(part["pcnt"]).astype(object)
-                c = np.asarray(part["cnt"], dtype=np.int64)
-                mk = np.asarray(g.arrays["min_keys"]).astype(object)
-                w = pc.shape[1]
-                weights = np.array([1 << p for p in range(w)], object)
-                total += int((pc * weights[None, :]).sum())
-                total += int((mk * c.astype(object)).sum())
-                cnt += int(c.sum())
-                continue
             if len(part) == 2:            # wide per-limb form: u64[L, Pg]
                 sums = np.asarray(part[0])
                 c = np.asarray(part[1])
@@ -1025,22 +719,6 @@ class SegmentScanner:
         from ..encode.schemes import Scheme as Sch
         best = None
         for part, g in zip(parts, groups):
-            if isinstance(part, dict):
-                # fused Pallas tournament form: pack-RELATIVE u32 halves
-                # (mn_lo, mn_hi, mx_lo, mx_hi); host adds min_key
-                mm = np.asarray(part["mnmx"])
-                c = np.asarray(part["cnt"], dtype=np.int64)
-                mk = np.asarray(g.arrays["min_keys"]).astype(object)
-                col = (0, 1) if want_min else (2, 3)
-                for j in range(len(c)):
-                    if int(c[j]) == 0:
-                        continue
-                    rel = int(mm[j, col[0]]) | (int(mm[j, col[1]]) << 32)
-                    v = _key_to_value(rel + int(mk[j]), ft)
-                    if best is None or (v < best if want_min
-                                        else v > best):
-                        best = v
-                continue
             mn, mx, c = part
             mn = np.asarray(mn)
             mx = np.asarray(mx)
@@ -1200,108 +878,6 @@ class SegmentScanner:
                     v = (v << 32) | limbs[l][m].astype(object)
                 out[m] = v - bias
         return out
-
-
-def _dict_code_range_host(leaf, g):
-    """Per-pack inclusive CODE ranges for a DICT-group leaf (host twin
-    of exec/rewrite._dict_consts/_dict_consts_bytes for the fused tree
-    kernel — the three MUST agree predicate-by-predicate; the fused-vs-
-    unfused equivalence test in tests/test_pallas_scan.py guards the
-    pair): dictionaries are sorted, so EQ/LT/LE/GT/GE/RANGE map to
-    half-open code intervals via bisect. Empty intervals (incl. EQ
-    misses) encode as the universally-empty inverted pair (1, 0): the
-    kernel's bit ladders then require code >= 1 AND code <= 0, which no
-    row satisfies — there is NO separate sentinel path here (unlike
-    rewrite.py's _MISS, which rides the XLA matcher's in_dom flag).
-    Returns (lo u64[P], hi u64[P])."""
-    import bisect
-    P = g.npacks
-    lo = np.zeros(P, np.uint64)
-    hi = np.zeros(P, np.uint64)
-    m = leaf.mode
-    is_bytes = g.dict_bytes is not None
-    for j in range(P):
-        if is_bytes:
-            dk = g.dict_bytes[j]
-            v = leaf.value_bytes
-            v0, v1 = (v[0], v[1]) if m == FilterMode.RANGE else (v, v)
-            lb = lambda x: bisect.bisect_left(dk, x)      # noqa: E731
-            ub = lambda x: bisect.bisect_right(dk, x)     # noqa: E731
-        else:
-            dk = g.dict_keys[j]
-            v0 = np.uint64(int(leaf.key))
-            v1 = np.uint64(int(getattr(leaf, "key_hi", 0) or 0)) \
-                if m == FilterMode.RANGE else v0
-            lb = lambda x: int(np.searchsorted(dk, x, "left"))   # noqa: E731
-            ub = lambda x: int(np.searchsorted(dk, x, "right"))  # noqa: E731
-        card = len(dk)
-        if m == FilterMode.EQ:
-            l, h = lb(v0), ub(v0)              # [pos, pos+1) or empty
-        elif m == FilterMode.LT:
-            l, h = 0, lb(v0)
-        elif m == FilterMode.LE:
-            l, h = 0, ub(v0)
-        elif m == FilterMode.GT:
-            l, h = ub(v0), card
-        elif m == FilterMode.GE:
-            l, h = lb(v0), card
-        elif m == FilterMode.RANGE:
-            l, h = lb(v0), ub(v1)
-        else:
-            raise ValueError(f"_dict_code_range_host: {m}")
-        if h <= l:
-            lo[j], hi[j] = 1, 0                # universally empty
-        else:
-            lo[j], hi[j] = l, h - 1
-    return lo, hi
-
-
-def _mode_to_range_host(mode: FilterMode, lo: int, hi: int):
-    """Host-int twin of _mode_to_range: inclusive u64 (lo, hi) for the
-    fused kernel's HOST-side operand binding (r3: Mosaic operands are
-    bound on the host per query — computing them in-graph from traced
-    consts wedges the TPU grant on the 2nd execution of any lax.scan-
-    wrapped program, probes/scan_wedge_engine.py)."""
-    U = (1 << 64) - 1
-    if mode == FilterMode.RANGE:
-        return lo, hi
-    if mode == FilterMode.EQ:
-        return lo, lo
-    if mode == FilterMode.GE:
-        return lo, U
-    if mode == FilterMode.LE:
-        return 0, lo
-    if mode == FilterMode.GT:
-        return (1, 0) if lo == U else (lo + 1, U)
-    if mode == FilterMode.LT:
-        return (1, 0) if lo == 0 else (0, lo - 1)
-    raise ValueError(f"_mode_to_range_host: {mode}")
-
-
-def _mode_to_range(mode: FilterMode, consts: dict):
-    """Narrow-bitpack leaf consts -> inclusive u64 (lo, hi) for the
-    Pallas fused range kernel. Strict modes adjust by one key; boundary
-    wraps (GT u64max, LT 0) map to the universally-empty range (1, 0)."""
-    U = jnp.uint64(0xFFFFFFFFFFFFFFFF)
-    Z = jnp.uint64(0)
-    lo = consts["lo"]
-    if mode == FilterMode.RANGE:
-        return lo, consts["hi"]
-    if mode == FilterMode.EQ:
-        return lo, lo
-    if mode == FilterMode.GE:
-        return lo, U
-    if mode == FilterMode.LE:
-        return Z, lo
-    if mode == FilterMode.GT:
-        wrap = lo == U
-        return (jnp.where(wrap, jnp.uint64(1), lo + jnp.uint64(1)),
-                jnp.where(wrap, Z, U))
-    if mode == FilterMode.LT:
-        wrap = lo == Z
-        return (jnp.where(wrap, jnp.uint64(1), Z),
-                jnp.where(wrap, Z, lo - jnp.uint64(1)))
-    raise ValueError(f"_mode_to_range: {mode}")
 
 
 def _leaf_cache_key(f: Filter) -> tuple:

@@ -26,7 +26,7 @@ from . import device as D
 
 __all__ = ["segment_topk"]
 
-_SENT = jnp.uint64(0xFFFFFFFFFFFFFFFF)
+_SENT = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
 def _flat_keys_u64(scanner, fname: str, arrays, W: int):
@@ -114,7 +114,7 @@ def segment_topk(scanner, tree, order_field: str, k: int,
                     keys = ~keys
                 keys = jnp.where(flat_mask, keys, _SENT)
                 # partial sort: top_k of flipped keys == k smallest keys
-                # ascending (full argsort + gather is ~30x slower on TPU)
+                # ascending (no full argsort + gather)
                 _vals, top = jax.lax.top_k(~keys, k)
             outs = {"__idx": top}
             okeys = None
@@ -190,24 +190,19 @@ def _topk_fast_plan(d, col, order_field: str):
 def _topk_bit_descent(scanner, margs, mask_raw, arrays, fast,
                       order_field: str, k: int, desc: bool,
                       project: list[str], has_excl: bool):
-    """TPU-native top-k: MSB-first radix SELECT over comparable bitplanes
+    """Device top-k: MSB-first radix SELECT over comparable bitplanes
     (ops/bitslice.topk_select) instead of sorting the row population —
     width popcount passes + K-scale gathers, bandwidth-bound (the
-    lax.top_k path sorts all P*N keys, ~20x slower at 16M rows;
-    VERDICT r1 weak #3)."""
+    lax.top_k path sorts all P*N keys)."""
     from ..ops import bitslice as BS
     from ..ops import compact as C
     d = scanner.d
     wo, cb_np, gmin = fast
     kcap = max(1, 1 << (k - 1).bit_length())
     used = sorted(set([order_field] + project))
-    # r5 MEASURED DECISION (probes/topk_marginal.py): the bit-pair
-    # descent's device marginal is ~1 ms/call at 16.7M rows w=64 —
-    # bandwidth-cheap mask ops, NOT the latency bottleneck the e2e
-    # number suggested. A radix-8192 Pallas-histogram descent was
-    # built, oracle-tested and bench'd: 32 ms/call on device (each
-    # 13-bit histogram costs R MACs/row) — deleted, s8b-style, rather
-    # than left as a slower reachable path.
+    # the bit-pair descent is bandwidth-cheap mask ops (one popcount
+    # pass per plane pair); a wide-radix histogram descent would cost R
+    # MACs per row per 13-bit digit instead
     sig = ("topk-bd", d.sig(used), order_field, kcap, desc,
            tuple(project), has_excl,
            scanner._plan_sigs[id(mask_raw)])
@@ -245,8 +240,8 @@ def _topk_bit_descent(scanner, margs, mask_raw, arrays, fast,
             sel = jnp.concatenate(
                 [ar < nb, (ar < (kk - nb)) & (ar < tc.astype(jnp.int32))])
             # ONE packed u32 buffer -> ONE host fetch: every synchronized
-            # fetch pays the relay's flat ~25-30 ms, and this path's
-            # latency was fetch-bound, not compute-bound (round 2)
+            # fetch pays a fixed cost, and this path's latency was
+            # fetch-bound, not compute-bound
             parts = [sel.astype(jnp.uint32), idx.astype(jnp.uint32)]
             parts.extend(vwords)
             for name in proj_cols:

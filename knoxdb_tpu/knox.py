@@ -1,6 +1,6 @@
 """knox — the public SDK facade.
 
-The TPU analog of the reference SDK (/root/reference/pkg/knox/
+The device analog of the reference SDK (/root/reference/pkg/knox/
 interface.go:87-137, query.go:29-45, table.go:244-296): databases hold
 tables; tables ingest dataclass rows or column batches under implicit
 per-call transactions; queries build AND/OR condition trees with a
@@ -477,7 +477,7 @@ class Query:
         return GroupQuery(self, field)
 
     def rows(self) -> dict:
-        """Column-batch results (TPU-native shape). Decimal fields are
+        """Column-batch results (the device-native shape). Decimal fields are
         scaled to floats (value / 10^scale)."""
         names = self._select or [f.name for f in self._table.schema.fields]
         r = self._run([AggSpec("count")], project=names)
@@ -593,7 +593,7 @@ def join(left: "Query", right: "Query", on: tuple[str, str],
     arbitrary subset, like the reference's block-iteration order).
     On the device path predicate columns are fetched FIRST and
     non-predicate projections only for surviving rows — the post-
-    filter prunes the expensive relay fetch, not just the output.
+    filter prunes the device-to-host fetch, not just the output.
 
     Execution: integer-keyed INNER/LEFT joins run DEVICE-SIDE — both
     sides' keys are compacted on device from the filter masks, joined
@@ -633,8 +633,8 @@ def join(left: "Query", right: "Query", on: tuple[str, str],
     orig_r = set(rsel)
     if select:
         # projection PUSHDOWN: drop unselected columns BEFORE the
-        # materialization fetch (the relay moves ~45 MB/s — decoding
-        # then discarding whole columns is the expensive order).
+        # materialization fetch (decoding then discarding whole
+        # columns is the expensive order).
         # select names address OUTPUT keys (r_-renamed on collisions).
         lsel, rsel = _join_pushdown(lsel, rsel, orig_l, select)
 
@@ -651,8 +651,8 @@ def join(left: "Query", right: "Query", on: tuple[str, str],
     mesh = getattr(lt.engine, "mesh", None)
     # keys32: both sides' TYPES prove the join domain fits u32
     # (unsigned <=32-bit; signed types bias to the 2^63 flip domain
-    # and never qualify) — drops the hi-limb sort operand (~15% off
-    # the dominant sort, r3 probe) on every core, local or distributed
+    # and never qualify) — drops the hi-limb operand of the dominant
+    # sort on every core, local or distributed
     k32 = (not lft.is_signed and not rft.is_signed
            and lft.bits <= 32 and rft.bits <= 32)
     if mesh is not None and getattr(rt.engine, "mesh", None) is mesh:
@@ -686,7 +686,7 @@ def join(left: "Query", right: "Query", on: tuple[str, str],
     pre_side = {}                # predicate name -> (side, field)
     if where is not None:
         # post-filter BEFORE the projection fetch: only the predicate
-        # columns cross the relay at full match size
+        # columns are fetched at full match size
         lflds = {f.name for f in lt.full_schema.fields}
         rflds = {f.name for f in rt.full_schema.fields}
         pre_side = _post_where_resolve(

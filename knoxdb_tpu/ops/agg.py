@@ -52,7 +52,7 @@ def _tournament(x, mask, want_min: bool):
     """Lexicographic masked min/max over the last axis.
 
     x: u32[L, N] (N power of two), mask: bool[N] -> u32[L] winner limbs.
-    Log-depth halving keeps everything elementwise (VPU) and fusable."""
+    Log-depth halving keeps everything elementwise and fusable."""
     from . import cmp as C
 
     L, n = x.shape
@@ -93,9 +93,9 @@ def last_index(mask):
 def keyform_to_float(x, ft: FieldType):
     """Device decode: keyform limbs -> float values (f64 for FLOAT64).
 
-    NOTE: on TPU stacks XLA rewrites 64-bit floats to a two-float emulation
-    (~48-bit mantissa), so the decoded f64 VALUES may lose low mantissa bits
-    there; compare/min/max stay bit-exact (they run on integer keyform), and
+    NOTE: where a backend emulates f64 (some accelerators use a
+    two-float form with ~48-bit mantissa) the decoded f64 VALUES may
+    lose low mantissa bits; compare/min/max stay bit-exact (they run on integer keyform), and
     query results are materialized from keyform on the host (exact). Only
     in-device float arithmetic (sum/avg) carries the emulated precision."""
     if ft is FieldType.FLOAT32:

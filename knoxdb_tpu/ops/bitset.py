@@ -1,10 +1,10 @@
 """Packed u32 bitset ops — the materialized-mask format.
 
-TPU-native analog of the reference bitset package
+Device-side analog of the reference bitset package
 (/root/reference/internal/bitset/kernel.go:31-43): masks that cross kernel
 boundaries (selection vectors, MVCC exclude masks, index results) are packed
-32 rows/word to cut HBM traffic 32x; masks inside a fused scan stay bool and
-never leave registers/VMEM.
+32 rows/word to cut memory traffic 32x; masks inside a fused scan stay bool and
+never leave registers.
 
 Bit order: bit k of word w = row w*32 + k (LSB-first within the word).
 """

@@ -1,6 +1,6 @@
 """Vectorized predicate kernels over uint32 keyform limbs.
 
-TPU-native replacement for the reference's per-type SIMD compare kernels
+Device-side replacement for the reference's per-type SIMD compare kernels
 (/root/reference/internal/cmp/cmp.go:35-42 + 25k lines of AVX2/AVX512 asm).
 Because every type is in order-preserving keyform (utils/limbs.py), ONE
 lexicographic unsigned limb comparison family covers all of
@@ -11,7 +11,7 @@ All functions take:
   c: uint32[L]          constant limbs (traced, so queries don't recompile
                         when only the constant changes)
 and return bool[*shape] masks. XLA fuses these with the surrounding decode
-and mask-combine stages into a single HBM pass.
+and mask-combine stages into a single device-memory pass.
 """
 
 from __future__ import annotations

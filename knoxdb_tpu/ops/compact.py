@@ -1,6 +1,6 @@
 """Mask -> selection-vector compaction and masked gather.
 
-TPU-native replacement for the reference's bitset.Indexes selection-vector
+Device-side replacement for the reference's bitset.Indexes selection-vector
 builder (/root/reference/internal/bitset/kernel.go:31-43, iterator.go):
 instead of a serial bit iterator, compaction is an exclusive prefix-sum of
 the mask followed by a scatter-with-drop — O(N) elementwise + one scatter,
@@ -26,9 +26,9 @@ def mask_to_indexes(mask, cap: int, base: int | jnp.ndarray = 0):
     idx[:count] are the (base + row) positions of set bits in ascending
     order; idx[count:] == SENTINEL (0xFFFFFFFF). cap is static.
 
-    TPU note: implemented with lax.top_k over negated row ids — scatter
-    (`.at[dest].set`) runs ~1000x below bandwidth on TPU, while top_k is
-    a partial sort at full throughput (see CLAUDE.md perf rules)."""
+    Implemented with lax.top_k over negated row ids (a partial sort)
+    rather than a scatter (`.at[dest].set`); which is faster on the GPU
+    is open (ROADMAP A5)."""
     import jax
     mask = mask.reshape(-1)
     n = mask.shape[0]

@@ -1,9 +1,9 @@
 """Vectorized hashing over keyform limbs.
 
-TPU-native replacement for the reference's xxh3 vector-hash kernels
+Device-side replacement for the reference's xxh3 vector-hash kernels
 (/root/reference/internal/hash/hash.go:25-34, xxh3_amd64.s): a murmur3-
-style 32-bit combine/finalize over u32 limbs, chosen because the VPU has
-native 32-bit multiplies (64-bit multiplies are emulated on TPU). The
+style 32-bit combine/finalize over u32 limbs, chosen because 32-bit
+multiplies are native on every device it targets. The
 exact hash function differs from the reference (xxh3) by design — hashes
 never leave the system, only their distribution matters.
 

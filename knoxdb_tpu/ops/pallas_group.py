@@ -1,43 +1,28 @@
-"""Pallas TPU kernel: fused factored one-hot group-by (count + exact sum).
+"""Pallas kernel (Triton route): factored one-hot group-by partials.
 
-The XLA factored MXU kernel (exec/groupby._group_mxu_factored) is bound
-at ~470 M rows/s by the HBM materialization of its one-hot operands
-(~400 B/row written + read around each dot). This kernel builds the
-one-hots IN VMEM per tile — HBM traffic drops to the 12 B/row of
-(gid, value) inputs plus ~2.3 B/row of f32 partials out, putting the
-roofline in the multi-G rows/s range (MXU-bound: ~9.2 kMAC/row).
+The XLA factored path (exec/groupby._group_mxu_factored) writes its
+one-hot operands to device memory around every dot — the optimized HLO
+on the H100 materializes the [T, L*NC] chunk matrix — which keeps it at
+a few per cent of the card's memory rate. This kernel builds both
+one-hots in registers, so device memory sees only the 12 B/row of
+(gid, value) inputs and the per-program partials.
 
 Decomposition (same as the XLA kernel): gid = hi*L + lo over a fixed
-H=128 hi axis (fills the MXU output tile) and L = 2^ceil(log2(G/H)).
-Per grid step over S*1024-row tiles (S = pick_sublanes sublane rows;
-bigger tiles amortize the per-step one-hot builds — S=16 measured +56%
-over S=8 at G=1000), one batched lane-contracting matmul
+H=128 hi axis and L = 2^ceil(log2(G/128)) lo bins; output column
+j = l*NCP + c holds byte chunk c (c < C) or the count (c == C) of the
+rows with lo == l, NCP = C+1 padded to a power of two. Each program
+owns a contiguous row split and one block of COLS output columns, and
+walks its rows ROWS_T at a time:
 
-    part[s, h, j] = sum_t hi_oh[s, h, t] * m2[s, j, t]     (s = sublane
-    row of S, t = 1024 lanes, j = l*9 + c over 8 value byte-chunks + a
-    count column)
+    acc[h, j] += sum_t hi_onehot[h, t] * m2[t, j]      (bf16 in, f32 acc)
 
-accumulates a [H, L*9] f32 partial whose entries stay < 2^24 (255 *
-S * 1024 for S <= 64), so f32 is EXACT; cross-tile accumulation happens OUTSIDE the
-kernel with u64 ADDS only (u64 shifts/multiplies are unreliable on this
-stack — CLAUDE.md; final byte recombination is host-side python ints,
-exec/groupby.mxu_chunk_sums).
-
-Both dot operands keep rows in the LANE dim (contracting dim (2, 2)) —
-no lane->sublane relayouts, which Mosaic handles poorly.
-
-Layout rules honored (CLAUDE.md Pallas notes): block last-two dims are
-(S, 1024) with S a multiple of 8 (pick_sublanes VMEM-budget rule) / equal
-to array dims; no 64-bit dtypes in-kernel (values arrive pre-split as u32
-lo/hi words); no traced module constants.
-
-DEFAULT ON (config.use_pallas_group; KNOX_NO_PALLAS_GROUP=1 kills):
-unlike round-2-early Mosaic runs, repeat executions of THIS kernel are
-stable on the current harness (4/4 bit-exact, no grant wedge) and it
-measures 1.27-1.29 G rows/s at G=1000 over 4.2M rows — 2.5x the XLA
-factored kernel. Interpret mode covers the kernel in CPU tests.
-Reference analog: none (the reference has no group-by operator,
-internal/query/plan.go:26-34).
+Exactness: an f32 partial covers at most `flush` <= 65,536 rows, so each
+entry stays below 255 * 65,536 < 2^24 (exact in f32); it is then added
+into an int32 accumulator, exact because a split holds at most 2^23 rows
+(255 * 2^23 < 2^31). Cross-split sums are u64 adds outside the kernel,
+and the byte recombination is on the host (groupby.mxu_chunk_sums).
+No float32 matmul exists on the path: the dot's operands are bf16 one-hots
+and bf16 bytes, both exact.
 """
 
 from __future__ import annotations
@@ -48,215 +33,111 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plt
 
-__all__ = ["fused_group_partials", "fused_group_moments_partials",
-           "H_BINS"]
+__all__ = ["H_BINS", "geometry", "group_partials"]
 
-H_BINS = 128          # hi-axis bins == MXU output tile rows
-_T8 = 1024            # lanes per sublane row; tile rows = 8 * _T8
-_Z = np.int32(0)      # index-map zero (python 0 traces i64 under x64)
-
-
-def _chunk_cols(vlo, vhi, C):
-    """bf16 byte-chunk columns from u32 value halves (shared by the
-    plain and the moments kernels). Route through i32: Mosaic has no
-    u32 -> bf16 cast lowering (TPU-measured)."""
-    cols = []
-    for c in range(C):
-        w = vlo if c < 4 else vhi
-        cols.append(((w >> np.uint32(8 * (c % 4))) & np.uint32(0xFF))
-                    .astype(jnp.int32).astype(jnp.bfloat16))
-    return cols
+H_BINS = 128            # hi-axis bins (the dot's M)
+ROWS_T = 128            # rows per dot step (the dot's K)
+MAX_FLUSH = 1 << 16     # rows per exact f32 partial (255 * 2^16 < 2^24)
+MAX_SPLIT = 1 << 23     # rows per int32 accumulator (255 * 2^23 < 2^31)
+MAX_COLS = 64           # output columns per program (the dot's N)
+TARGET_PROGRAMS = 528   # 4 waves over the H100's 132 SMs
+_NUM_WARPS = 4
+_Z = np.int32(0)        # index-map zero: a python 0 traces as i64 (x64)
 
 
-def _m2_vec(lo, cols, S: int, L: int):
-    """m2 [S, L*NC, T8] via ONE broadcast multiply: lo one-hot from an
-    iota compare (built once) x the stacked chunk columns. r5 — the
-    r1-r4 python loop + jnp.stack of L*NC rows was a Mosaic
-    materialization trap at L=32 (224-288 stacked relayouts): the
-    broadcast build measured 708 vs 479 M rows/s at G=8192 and is the
-    whole-G production form (probes/pg_bigG.py vec-vs-loop)."""
-    iota_l = jax.lax.broadcasted_iota(jnp.int32, (S, L, _T8), 1)
-    lo_oh = (lo[:, None, :] == iota_l).astype(jnp.bfloat16)
-    if len(cols) == 1:
-        # count-only histogram (n_chunks=0 — no production caller since
-        # the radix top-k deletion, kept for the public op surface +
-        # probes/histcrash_probe.py): the 4-D broadcast with a
-        # singleton NC axis crashes the real Mosaic backend's
-        # vector_extract layout pass ("limits 4 vs 1", r5 on-chip
-        # find); the 3-D multiply is the same program without the
-        # degenerate axis
-        return lo_oh * cols[0][:, None, :]
-    colstack = jnp.stack(cols, axis=1)                  # [S, NC, T8]
-    return (lo_oh[:, :, None, :] * colstack[:, None, :, :]) \
-        .reshape(S, L * len(cols), _T8)
+def _pow2(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
 
 
-def _kernel(gid_ref, vlo_ref, vhi_ref, out_ref, *, H: int, L: int,
-            shift: int, C: int, S: int):
-    g = gid_ref[0]                     # [S, T8] i32
-    vlo = vlo_ref[0]                   # [S, T8] u32
-    vhi = vhi_ref[0]
-    hi = g >> shift                    # i32 shifts are fine (32-bit)
-    lo = g & (L - 1)
-
-    iota_h = jax.lax.broadcasted_iota(jnp.int32, (S, H, _T8), 1)
-    hi_oh = (hi[:, None, :] == iota_h).astype(jnp.bfloat16)
-
-    cols = _chunk_cols(vlo, vhi, C)
-    cols.append(jnp.ones(g.shape, jnp.bfloat16))        # count column
-    m2 = _m2_vec(lo, cols, S, L)       # [S, L*(C+1), T8]
-
-    part = jax.lax.dot_general(
-        hi_oh, m2, (((2,), (2,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)             # [S, H, L*(C+1)]
-    out_ref[0] = jnp.sum(part, axis=0)
+def geometry(G: int, n_chunks: int) -> tuple[int, int]:
+    """(L, NCP): lo bins and the padded chunk-column count."""
+    L = _pow2(-(-max(G, 1) // H_BINS))
+    return L, max(2, _pow2(n_chunks + 1))
 
 
-def _kernel_moments(gid_ref, rlo_ref, rhi_ref, qlo_ref, qhi_ref,
-                    out_ref, *, H: int, L: int, shift: int, C1: int,
-                    C2: int, S: int):
-    """Moments variant (r4, VERDICT r3 next-#3): ONE pass emits the
-    value chunks (C1), the SQUARE chunks (C2) and the count — the
-    hi-axis one-hot and the per-row lo masks are built once instead of
-    twice (the two-kernel series program spent +1.3 and +5.4 ms on the
-    passes separately; see probes/series_profile.py)."""
-    g = gid_ref[0]
-    rlo = rlo_ref[0]
-    rhi = rhi_ref[0]
-    qlo = qlo_ref[0]
-    qhi = qhi_ref[0]
-    hi = g >> shift
-    lo = g & (L - 1)
-
-    iota_h = jax.lax.broadcasted_iota(jnp.int32, (S, H, _T8), 1)
-    hi_oh = (hi[:, None, :] == iota_h).astype(jnp.bfloat16)
-
-    cols = _chunk_cols(rlo, rhi, C1) + _chunk_cols(qlo, qhi, C2)
-    cols.append(jnp.ones(g.shape, jnp.bfloat16))        # count column
-    m2 = _m2_vec(lo, cols, S, L)       # [S, L*NC, T8]
-
-    part = jax.lax.dot_general(
-        hi_oh, m2, (((2,), (2,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)             # [S, H, L*NC]
-    out_ref[0] = jnp.sum(part, axis=0)
+def _split_plan(n: int, n_blocks: int) -> tuple[int, int, int]:
+    """(flush, rows per split, splits): enough programs to fill the card,
+    splits a multiple of flush rows, at most MAX_SPLIT rows each."""
+    flush = min(MAX_FLUSH, max(ROWS_T, _pow2(n)))
+    n_flush = -(-n // flush)
+    want = -(-TARGET_PROGRAMS // n_blocks)
+    per = max(1, min(MAX_SPLIT // flush, -(-n_flush // want)))
+    return flush, per * flush, -(-n_flush // per)
 
 
-def fused_group_moments_partials(gid, rlo, rhi, qlo, qhi, G: int,
-                                 L: int, shift: int, C1: int, C2: int,
-                                 interpret: bool = False,
-                                 H: int = H_BINS, S: int | None = None):
-    """Moments form of fused_group_partials: f32[B, H, L*(C1+C2+1)]
-    per-tile partials with value chunks, square chunks and counts from
-    ONE kernel pass. Same exactness bound (each f32 entry <
-    S*1024*255 < 2^24 for S <= 64)."""
-    NC = C1 + C2 + 1
-    if S is None:
-        S = pick_sublanes(H, L, C1 + C2)
-    if S % 8 or not 0 < S <= 64:
-        raise ValueError(f"fused_group_moments_partials: S={S}")
+def _kernel(gid_ref, lo_ref, hi_ref, out_ref, *, shift: int, L: int,
+            ncp: int, C: int, cols: int, flush: int, split: int):
+    r = pl.program_id(0)
+    cb = pl.program_id(1)
+    # output column block: column j -> (lo bin, chunk) = (j / ncp, j % ncp)
+    j = cb * cols + jax.lax.broadcasted_iota(jnp.int32, (cols,), 0)
+    col_l = j // ncp
+    col_c = j % ncp
+    use_hi = (col_c >= 4)[None, :]
+    sh = (8 * (col_c % 4)).astype(jnp.uint32)[None, :]
+    is_chunk = (col_c < C)[None, :]
+    is_cnt = (col_c == C)[None, :]
+    iota_h = jax.lax.broadcasted_iota(jnp.int32, (H_BINS, ROWS_T), 0)
+
+    def step(i, acc, base):
+        rows = pl.ds(base + i * ROWS_T, ROWS_T)
+        g = gid_ref[rows]
+        lo = lo_ref[rows]
+        hi = hi_ref[rows]
+        hot = (iota_h == (g >> shift)[None, :]).astype(jnp.bfloat16)
+        word = jnp.where(use_hi, hi[:, None], lo[:, None])
+        byte = ((word >> sh) & np.uint32(0xFF)).astype(jnp.int32)
+        val = jnp.where(is_chunk, byte, is_cnt.astype(jnp.int32))
+        val = jnp.where((g & (L - 1))[:, None] == col_l[None, :], val, 0)
+        m2 = val.astype(jnp.float32).astype(jnp.bfloat16)
+        return acc + pl.dot(hot, m2)
+
+    def flush_body(k, acc_i):
+        base = r * split + k * flush
+        acc_f = jax.lax.fori_loop(
+            0, flush // ROWS_T, partial(step, base=base),
+            jnp.zeros((H_BINS, cols), jnp.float32))
+        return acc_i + acc_f.astype(jnp.int32)
+
+    out_ref[...] = jax.lax.fori_loop(0, split // flush, flush_body,
+                                     jnp.zeros((H_BINS, cols), jnp.int32))
+
+
+def group_partials(gid, vlo, vhi, G: int, n_chunks: int,
+                   interpret: bool = False):
+    """gid i32[n] with invalid rows set to >= H*L; vlo/vhi u32[n] value
+    words (zero on invalid rows). Returns i32[splits, H, L*NCP] partials:
+    entry (h, l*NCP + c) = chunk-c byte sum (c < n_chunks) or count
+    (c == n_chunks) of the split's rows with gid == h*L + l. The caller
+    sums over splits with u64 adds."""
+    L, ncp = geometry(G, n_chunks)
+    width = L * ncp
+    cols = max(16, min(MAX_COLS, width))
+    n_blocks = -(-width // cols)
     n = gid.shape[0]
-    T = S * _T8
-    B = -(-n // T)
-    pad = B * T - n
-    SENT = H * L
+    flush, split, splits = _split_plan(n, n_blocks)
+    pad = splits * split - n
     if pad:
-        gid = jnp.concatenate([gid, jnp.full(pad, SENT, jnp.int32)])
+        gid = jnp.concatenate([gid, jnp.full(pad, H_BINS * L, jnp.int32)])
         z = jnp.zeros(pad, jnp.uint32)
-        rlo = jnp.concatenate([rlo, z])
-        rhi = jnp.concatenate([rhi, z])
-        qlo = jnp.concatenate([qlo, z])
-        qhi = jnp.concatenate([qhi, z])
-    g3 = gid.reshape(B, S, _T8)
-    a3 = rlo.reshape(B, S, _T8)
-    b3 = rhi.reshape(B, S, _T8)
-    c3 = qlo.reshape(B, S, _T8)
-    d3 = qhi.reshape(B, S, _T8)
-    vma = getattr(getattr(g3, "aval", None), "vma", None)
-    if vma:
-        out_shape = jax.ShapeDtypeStruct((B, H, L * NC), jnp.float32,
-                                         vma=vma)
-    else:
-        out_shape = jax.ShapeDtypeStruct((B, H, L * NC), jnp.float32)
-    spec = pl.BlockSpec((1, S, _T8), lambda i: (i, _Z, _Z))
-    return pl.pallas_call(
-        partial(_kernel_moments, H=H, L=L, shift=shift, C1=C1, C2=C2,
-                S=S),
-        grid=(B,),
-        in_specs=[spec] * 5,
-        out_specs=pl.BlockSpec((1, H, L * NC), lambda i: (i, _Z, _Z)),
-        out_shape=out_shape,
+        vlo = jnp.concatenate([vlo, z])
+        vhi = jnp.concatenate([vhi, z])
+    whole = pl.BlockSpec((splits * split,), lambda r, c: (_Z,))
+    out = pl.pallas_call(
+        partial(_kernel, shift=L.bit_length() - 1, L=L, ncp=ncp,
+                C=n_chunks, cols=cols, flush=flush, split=split),
+        grid=(splits, n_blocks),
+        in_specs=[whole, whole, whole],
+        out_specs=pl.BlockSpec((None, H_BINS, cols),
+                               lambda r, c: (r, _Z, c)),
+        out_shape=jax.ShapeDtypeStruct((splits, H_BINS, n_blocks * cols),
+                                       jnp.int32),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=_NUM_WARPS,
+                                           num_stages=2),
         interpret=interpret,
-    )(g3, a3, b3, c3, d3)
-
-
-def pick_sublanes(H: int, L: int, n_chunks: int) -> int:
-    """Sublane rows per grid step. Bigger tiles amortize the per-step
-    one-hot builds (r2-cont TPU probe, probes/pg3_variants.py: S=16 is
-    +56% over S=8 at G=1000/C=4; S=32 ties S=16 at 2x the VMEM).
-    Budget rule calibrated on known-good shapes: the dominant VMEM
-    residents hi_oh [S,H,T8] + m2 [S,L*NC,T8] bf16 must stay <= ~9.5 MB
-    (S=8,H=256,L=32,C=8 = 8.9 MB is TPU-validated; S=32,H=128,L*NC=40 =
-    11 MB ran but buys nothing over S=16)."""
-    NC = n_chunks + 1
-    for S in (32, 16, 8):
-        if 2 * _T8 * S * (H + L * NC) <= 9_500_000:
-            return S
-    return 8
-
-
-def fused_group_partials(gid, vlo, vhi, G: int, L: int, shift: int,
-                         n_chunks: int = 8, interpret: bool = False,
-                         H: int = H_BINS, S: int | None = None):
-    """gid i32[n] with invalid rows set to H*L; vlo/vhi u32[n] value
-    words. Returns f32[B, H, L*(C+1)] per-tile partials (entry
-    (h, l*(C+1)+c) = chunk-c byte sum of rows with gid == h*L + l; c == C
-    is the count; C = n_chunks shrinks with the column's stats range —
-    exec/groupby.chunk_plan). Cross-tile accumulation is the CALLER's
-    job (u64 adds). H defaults to 128 (one MXU output tile); H=256
-    doubles the VMEM kernel's G coverage at the same L cap. S = sublane
-    rows per tile (pick_sublanes; f32 partials stay exact because each
-    per-(h,l,c) entry is < S*1024*255 < 2^24 for S <= 64)."""
-    C = n_chunks
-    if S is None:
-        S = pick_sublanes(H, L, C)
-    if S % 8 or not 0 < S <= 64:
-        # S > 64 breaks the f32 per-tile exactness bound (S*1024*255 <
-        # 2^24); S not a multiple of 8 breaks the Mosaic sublane tile
-        # rule (block dims (8k, 128k))
-        raise ValueError(f"fused_group_partials: S={S} must be a "
-                         f"multiple of 8 in (0, 64]")
-    n = gid.shape[0]
-    T = S * _T8
-    B = -(-n // T)
-    pad = B * T - n
-    SENT = H * L
-    if pad:
-        gid = jnp.concatenate([gid, jnp.full(pad, SENT, jnp.int32)])
-        vlo = jnp.concatenate([vlo, jnp.zeros(pad, jnp.uint32)])
-        vhi = jnp.concatenate([vhi, jnp.zeros(pad, jnp.uint32)])
-    g3 = gid.reshape(B, S, _T8)
-    lo3 = vlo.reshape(B, S, _T8)
-    hi3 = vhi.reshape(B, S, _T8)
-    NC = C + 1
-    # under shard_map (vma-checked), pallas_call's out_shape must state
-    # how the output varies over mesh axes: inherit the input's vma
-    # (per-shard data in -> per-shard partials out). r4 SPMD probe find.
-    vma = getattr(getattr(g3, "aval", None), "vma", None)
-    if vma:
-        out_shape = jax.ShapeDtypeStruct((B, H, L * NC), jnp.float32,
-                                         vma=vma)
-    else:
-        out_shape = jax.ShapeDtypeStruct((B, H, L * NC), jnp.float32)
-    return pl.pallas_call(
-        partial(_kernel, H=H, L=L, shift=shift, C=C, S=S),
-        grid=(B,),
-        in_specs=[
-            pl.BlockSpec((1, S, _T8), lambda i: (i, _Z, _Z)),
-            pl.BlockSpec((1, S, _T8), lambda i: (i, _Z, _Z)),
-            pl.BlockSpec((1, S, _T8), lambda i: (i, _Z, _Z)),
-        ],
-        out_specs=pl.BlockSpec((1, H, L * NC), lambda i: (i, _Z, _Z)),
-        out_shape=out_shape,
-        interpret=interpret,
-    )(g3, lo3, hi3)
+        name="knox_group_onehot",
+    )(gid, vlo, vhi)
+    return out[:, :, :width]

@@ -6,7 +6,7 @@ deletes land here first (WAL-backed), reads merge journal rows over
 segment scan results with snapshot isolation, and a background merge
 drains committed rows into new immutable segments.
 
-TPU-first inversion: the journal is host-only numpy (it is small and
+Device-first inversion: the journal is host-only numpy (it is small and
 mutation-heavy — the wrong shape for the device); segments are the
 device-resident fast path. Journal query evaluation uses the same keyform
 semantics as the kernels via a numpy reference evaluator (exec/oracle.py),

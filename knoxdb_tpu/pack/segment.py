@@ -1,6 +1,6 @@
 """Immutable column segments: the unit of device-resident table storage.
 
-TPU-first re-design of the reference's pack storage
+Device-first re-design of the reference's pack storage
 (/root/reference/internal/pack/package.go:23-34 + internal/block): a
 segment is a horizontal slice of a table as a set of fixed-geometry packs
 (PACK_SIZE rows, padded), each column encoded per pack with the cheapest

@@ -1,6 +1,6 @@
 """Zone-map statistics + pack pruning.
 
-TPU-first re-design of the reference's statistics tree
+Device-first re-design of the reference's statistics tree
 (/root/reference/internal/pack/stats/index.go:201-223, match.go,
 iterator.go): instead of a pointer-based n-ary tree of stats packs walked
 by an iterator, stats live as struct-of-arrays per segment — min_key[P],

@@ -18,7 +18,7 @@ Layout contract (pack/segment.build_segment uniform=N):
   unchanged (per-pack partials are tiny: a few u64 per pack)
 
 On a single host the driver validates this on a virtual CPU mesh; the
-same program runs on real multi-chip meshes (ICI) unchanged.
+same program runs on a mesh of GPUs unchanged.
 """
 
 from __future__ import annotations
@@ -87,12 +87,6 @@ def _arg_specs(args, axis: str):
     def leaf_spec(leaf):
         if isinstance(leaf, list):
             return [_const_entry_specs(g, axis) for g in leaf]
-        # r5: trailing FUSED-kernel operand entry (exec/scan
-        # _prepare_tail): (lo_bits, hi_bits, flags) per fused leaf —
-        # all [P, w]-shaped per-pack arrays, pack axis 0
-        if isinstance(leaf, tuple) and leaf \
-                and isinstance(leaf[0], tuple):
-            return tuple(tuple(P(axis, None) for _ in t) for t in leaf)
         return tuple(P(axis, None) for _ in leaf)
 
     consts_s = [leaf_spec(leaf) for leaf in consts]
@@ -103,18 +97,11 @@ def _arg_specs(args, axis: str):
 
 def _out_specs_parts(out_shapes, axis: str):
     """(mask, pack_counts, parts) -> matching spec pytree. Per-pack part
-    arrays: 1-d [Pg] shard axis 0; 2-d LIMB forms [L, Pg] shard axis 1;
-    r5 fused-kernel dict forms ({"pcnt": [Pg, w]}, {"mnmx": [Pg, 8]},
-    {"cnt": [Pg]}) lead with the pack axis."""
-    from jax.tree_util import DictKey
-
-    def part_spec(path, s):
-        if any(isinstance(k, DictKey) and k.key in ("pcnt", "mnmx")
-               for k in path):
-            return P(axis, None)
+    arrays: 1-d [Pg] shard axis 0; 2-d LIMB forms [L, Pg] shard axis 1."""
+    def part_spec(s):
         return P(axis) if s.ndim == 1 else P(None, axis)
     _mask, _cnt, parts = out_shapes
-    parts_s = jax.tree_util.tree_map_with_path(part_spec, parts)
+    parts_s = jax.tree_util.tree_map(part_spec, parts)
     return (P(axis, None), P(axis), parts_s)
 
 
@@ -125,8 +112,6 @@ class ShardedScanner(SegmentScanner):
     returns a shard_map-wrapped version of the SAME raw plan the parent
     builds, so scan()/group_scan() host logic — exact aggregate
     combination, materialization, stats — is inherited untouched."""
-
-    spmd = True     # gates the single-chip Pallas fusion in _build_fn
 
     def __init__(self, dseg: D.DeviceSegment, mesh: Mesh,
                  axis: str = "packs"):
@@ -223,18 +208,13 @@ class ShardedScanner(SegmentScanner):
                 for f in agg_fields:
                     gi_, gsig_, _ = agg_sigs[f][0]
                     if use_mxu:
-                        # r4: Mosaic under shard_map PROBED clean
-                        # (probes/spmd_pallas_probe.py — virtual mesh +
-                        # 1-device TPU mesh, repeats bit-exact), gate
-                        # config.use_spmd_pallas (KNOX_SPMD_PALLAS=0
-                        # kills). r3 had this off on assumption.
-                        from ..config import use_spmd_pallas
                         dec = D.group_decode_halves(gsig_,
                                                     garrays[f][gi_], W)
+                        # inside shard_map: the plain XLA path
                         out[f] = GB.group_aggregate_mxu(
                             gids, mask, dec, gplan.G,
-                            allow_pallas=use_spmd_pallas(),
-                            n_chunks=cplan[f][0], bias=biases[f])
+                            n_chunks=cplan[f][0], bias=biases[f],
+                            family="xla")
                     else:
                         dec = D.group_decode_keys(gsig_,
                                                   garrays[f][gi_], W)

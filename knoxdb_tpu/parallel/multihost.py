@@ -1,28 +1,30 @@
-"""Multi-host (DCN) execution: process init + hybrid mesh construction.
+"""Multi-host execution: process init + hybrid mesh construction.
 
 The reference scales with a single Go process per node and no cross-node
 query execution; the BASELINE north star instead demands "rows/s scaling
 measured at 1 chip, 1 host, and N>=2 hosts" with "tables hash-partitioned
-by primary key". The TPU-native shape of that:
+by primary key". The device-side shape of that:
 
 - one jax process per host, joined via `jax.distributed.initialize`
   (this module's `initialize_from_env`), after which `jax.devices()`
-  spans the whole slice and the SAME SPMD programs (engine_spmd,
+  spans every host's devices and the SAME SPMD programs (engine_spmd,
   shuffle) run unchanged;
-- a HYBRID mesh whose outer axis enumerates hosts (traffic over DCN)
-  and whose inner axis enumerates each host's chips (traffic over ICI),
+- a HYBRID mesh whose outer axis enumerates hosts (traffic over the
+  network between hosts) and whose inner axis enumerates each host's
+  devices (traffic over the host's interconnect, NVLink on a GPU host),
   built with `mesh_utils.create_hybrid_device_mesh`;
-- the pack-partitioned scan layout (engine_spmd) keeps the DCN axis
+- the pack-partitioned scan layout (engine_spmd) keeps the host axis
   traffic-free by construction — segments are built `uniform=ndev` so
   every device owns a contiguous pack range, and the only cross-device
   data movement is the [P]-shaped per-pack partial combine (bytes per
   pack, not bytes per row). Hash-partitioning tables by pk IS the pack
   partition: build_segment orders rows by pk, so equal pk ranges land
   on equal devices (cf. the scaling-book recipe: choose shardings so
-  collectives ride ICI, and give DCN only the tiny reductions).
+  collectives ride the fast intra-host links, and give the network
+  between hosts only the tiny reductions).
 - shuffle joins (parallel/shuffle.py) use all_to_all over the flattened
   device axis; on a hybrid mesh XLA decomposes it hierarchically
-  (intra-host ICI first, then DCN) — the salted-skew logic is
+  (intra-host first, then between hosts) — the salted-skew logic is
   placement-agnostic.
 
 Single-host processes (and the CPU test mesh) fall back transparently:
@@ -45,7 +47,7 @@ __all__ = ["initialize_from_env", "hybrid_mesh", "attach"]
 def initialize_from_env() -> bool:
     """Join the multi-process jax runtime when the standard coordinator
     env vars are set (KNOX_COORDINATOR or JAX_COORDINATOR_ADDRESS +
-    process count/id; TPU pod slices auto-detect all three). Returns
+    process count/id). Returns
     True when distributed init ran. Safe to call more than once."""
     coord = os.environ.get("KNOX_COORDINATOR") \
         or os.environ.get("JAX_COORDINATOR_ADDRESS")
@@ -68,8 +70,9 @@ def initialize_from_env() -> bool:
 
 def hybrid_mesh(hosts_axis: str = "hosts", chips_axis: str = "packs",
                 devices=None) -> Mesh:
-    """(n_hosts, chips_per_host) mesh: outer axis spans processes (DCN),
-    inner axis spans each process's local chips (ICI). With one process
+    """(n_hosts, chips_per_host) mesh: outer axis spans processes (the
+    network between hosts), inner axis spans each process's local
+    devices. Multi-process GPU runs are untested. With one process
     (or a virtual CPU mesh) the outer axis has size 1 unless
     KNOX_VIRTUAL_HOSTS forces a factorization for testing."""
     devs = list(devices if devices is not None else jax.devices())
@@ -95,7 +98,7 @@ def attach(engine, mesh: Mesh | None = None) -> Mesh:
     """Wire a (hybrid) mesh into an engine. The engine's scan path
     (engine_spmd.ShardedScanner) partitions packs over ONE flat axis, so
     the hybrid grid flattens HOST-MAJOR: every host owns a contiguous
-    pack (= pk) range and the DCN axis never carries row data — only the
+    pack (= pk) range and the host axis never carries row data — only the
     per-pack partial combine. Returns the flat mesh that was attached."""
     if mesh is None:
         mesh = hybrid_mesh()

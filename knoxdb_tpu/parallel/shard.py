@@ -1,11 +1,11 @@
 """Multi-chip scan: pack-parallel execution over a jax.sharding.Mesh.
 
 The reference is single-process by design (/root/reference/README.md:57);
-this layer is the genuinely new TPU part (SURVEY.md §2.4): table segments
+this layer is the genuinely new part (SURVEY.md §2.4): table segments
 are hash/range-partitioned by pack across devices, the fused
 filter+aggregate kernel runs on each device's local packs (embarrassingly
 parallel — the scan has no cross-pack dependencies), and only the tiny
-per-query partials cross the ICI via psum.
+per-query partials cross the device interconnect via psum.
 
 Layout contract: per-pack arrays shard on their PACK axis — planes are
 PLANE-MAJOR u32[w, P, W] since r4 (pack axis = dim 1), min_keys u64[P]

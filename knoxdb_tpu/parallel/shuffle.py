@@ -1,10 +1,11 @@
 """Distributed hash join: salted all_to_all shuffle + local sort-probe,
 returning MATCHED ROW PAIRS (not checksums).
 
-The genuinely-new TPU part (the reference is single-process —
+The genuinely-new part (the reference is single-process —
 /root/reference/README.md:57; its join strategies are block merge/loop
 joins, internal/operator/join/join.go). BASELINE config #5 shape:
-hash-partition both sides by key over the mesh, exchange over ICI,
+hash-partition both sides by key over the mesh, exchange over the
+device interconnect,
 sort-probe each partition locally, materialize (lpos, rpos) pairs.
 
 Skew handling (salted repartition, the round-2 upgrade): per-bucket
@@ -55,10 +56,8 @@ SHIFT_S = 16           # shift-core span (see exec/join.SHIFT_S)
 
 def _bucket(keys, ndev: int):
     """Decorrelated bucket id (mix then mod; key % ndev correlates with
-    the low bits of sequential pks). 32-BIT mixing only: the emulated
-    u64 multiply/shift lowering is unreliable on the TPU stack
-    (CLAUDE.md x64 hazard) — split the key into u32 halves via bitcast
-    and murmur-mix those."""
+    the low bits of sequential pks). 32-BIT mixing only: split the key
+    into u32 halves via bitcast and murmur-mix those."""
     halves = jax.lax.bitcast_convert_type(keys, jnp.uint32)
     h = halves[..., 0] ^ (halves[..., 1] * jnp.uint32(0x85EBCA6B))
     h = (h ^ (h >> jnp.uint32(16))) * jnp.uint32(0xC2B2AE35)
@@ -120,7 +119,7 @@ def _probe_bounds_valid(rk_hi, rk_lo, r_inv, qk_hi, qk_lo,
     is a legal key). One merged co-sort + one restore sort, gather-free
     (exec/join.py design). Invalid builds tag-sort AFTER in-key queries
     and are excluded from the valid-build running count. keys32 drops
-    the hi-limb sort operand (~15%/operand, r3 TPU probe)."""
+    the hi-limb sort operand."""
     from ..exec.join import _fill_forward_max
     Nb, Nq = rk_lo.shape[0], qk_lo.shape[0]
     M = Nb + Nq
@@ -325,8 +324,7 @@ def _phase1(mesh: Mesh, axis: str, ndev: int):
     """Per-(source device, bucket) row histograms, returned SHARDED
     [ndev, ndev] (row = device, col = bucket). The host derives BOTH
     the global heavy mask (column sums) and the tight per-tile caps
-    (r4): no psum needed, and no collective-max hazard (this TPU
-    compiler lowers only Sum all-reduces)."""
+    (r4): no psum needed, and no collective max."""
     def local(lk, lv, rk, rv):
         def hist(k, v):
             d = jnp.where(v, _bucket(k, ndev), jnp.int32(ndev))
@@ -376,9 +374,8 @@ def _phase2(mesh: Mesh, axis: str, ndev: int, cap_l: int, cap_r: int,
         eff = jnp.where(lox, jnp.maximum(cnt, 1), 0) if how_left else cnt
         # per-device match count returned SHARDED; the caller (which
         # host-fetches this anyway to size the pair cap) takes the max.
-        # NOT pmax: this harness's TPU compiler lowers only SUM
-        # all-reduces ("Supported lowering only of Sum all reduce",
-        # r3-measured on the max all-reduce HLO).
+        # (kept free of pmax: the compiler this was first built with
+        # lowered only SUM all-reduces; the four-GPU mesh runs it as is)
         nmatch = eff.sum(dtype=jnp.int64)
         nrows = (lox.sum(dtype=jnp.int64)
                  + rox.sum(dtype=jnp.int64))[None]
@@ -502,9 +499,7 @@ def _phase23u(mesh: Mesh, axis: str, ndev: int, cap_l: int, cap_r: int,
                                       how_left, keys32)
         nrows = (lox.sum(dtype=jnp.int64)
                  + rox.sum(dtype=jnp.int64))[None]
-        # psum, not pmax: this harness's TPU compiler lowers only SUM
-        # all-reduces ("Supported lowering only of Sum all reduce",
-        # r3-measured); any-dup is a sum of 0/1 flags anyway
+        # psum, not pmax (see _phase2): any-dup is a sum of 0/1 flags
         return lpo, rpo, jax.lax.psum(dup.astype(jnp.int32), axis), nrows
     return jax.jit(jax.shard_map(
         local, mesh=mesh,

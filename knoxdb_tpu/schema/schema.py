@@ -1,6 +1,6 @@
 """Schema: typed field metadata + Python-native reflection.
 
-TPU-native analog of the reference's struct-tag schema system
+Device-side analog of the reference's struct-tag schema system
 (/root/reference/pkg/schema/schema.go:29-41, field.go:74-90, reflect.go).
 Where the reference reflects Go struct tags (`knox:"name,pk,index=..."`),
 we reflect Python dataclasses with typing annotations and per-field

@@ -2,7 +2,7 @@
 
 The reference encodes row-wise wire buffers with an opcode-programmed
 encoder and zero-copy views (/root/reference/pkg/schema/{encode,decode,
-view}.go). The TPU build is column-batch native — data crosses process /
+view}.go). This build is column-batch native — data crosses process /
 WAL / store boundaries as schema-ordered column blocks:
 
     [u32 magic][u16 version][u32 nrows][per field: u8 kind, u64 len, bytes]

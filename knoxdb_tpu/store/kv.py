@@ -2,13 +2,13 @@
 
 Abstraction mirrors the reference store layer (/root/reference/pkg/store/
 iface.go:15-90 DB/Tx/Bucket + driver registry driver.go:34) reduced to
-what the TPU engine persists: the catalog (schemas, object state), sealed
+what the engine persists: the catalog (schemas, object state), sealed
 encoded segments, and secondary index payloads. Backends:
 
 - MemStore: in-process dicts (reference pkg/store/memdb)
 - FileStore: directory-per-bucket, file-per-key with atomic tmp+rename
   writes (replaces bbolt; segment blobs are large and immutable, so a
-  B+tree buys nothing on the TPU engine's access pattern)
+  B+tree buys nothing on the engine's access pattern)
 
 Register new backends with `register_driver` (reference RegisterDriver).
 """

@@ -1,6 +1,6 @@
 """Seeded deterministic scenario runner with a model-based oracle.
 
-The TPU build's answer to the reference's deterministic simulation
+This build's answer to the reference's deterministic simulation
 testing (/root/reference/internal/tests/run/README.md: patched-Go WASM
 runtime + seed-driven scheduler): our engine is single-threaded per
 operation by construction, so determinism needs no runtime patching —

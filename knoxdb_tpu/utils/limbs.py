@@ -14,7 +14,7 @@ of limbs == the logical ordering of the values:
 
 This collapses the reference's per-type AVX2/AVX512 matcher table
 (/root/reference/internal/cmp/matcher.go:21-50) into ONE family of unsigned
-limb-compare kernels on the TPU (see ops/cmp.py).
+limb-compare kernels on the device (see ops/cmp.py).
 """
 
 from __future__ import annotations

@@ -1,15 +1,20 @@
 """ctypes bindings for the native host kernels (native/knox_native.cc).
 
-Builds the shared library on first import (cached under native/build);
-every entry point has a numpy fallback so the package works without a
-toolchain. The native side replaces the reference's encode-path SIMD
+Builds the shared library from the committed source on first import,
+into native/build under a name keyed by a hash of the source, so a
+changed source (or a checkout without the build) always rebuilds and a
+stale binary is never loaded. Every entry point has a numpy fallback so
+the package works without a toolchain; the fallback is announced on
+stderr. The native side replaces the reference's encode-path SIMD
 assembly on the HOST (the device side is ops/bitslice.py)."""
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -20,33 +25,36 @@ __all__ = ["lib", "bitplane_pack", "bitplane_unpack", "analyze_u64",
 
 _ROOT = Path(__file__).resolve().parents[2]
 _SRC = _ROOT / "native" / "knox_native.cc"
-_SO = _ROOT / "native" / "build" / "libknox_native.so"
+_BUILD = _ROOT / "native" / "build"
 
 lib = None
 
 
-def _build() -> bool:
-    try:
-        _SO.parent.mkdir(parents=True, exist_ok=True)
-        if (not _SO.exists()
-                or _SO.stat().st_mtime < _SRC.stat().st_mtime):
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                 "-o", str(_SO), str(_SRC)],
-                check=True, capture_output=True)
-        return True
-    except Exception:
-        return False
+def library_path() -> Path:
+    """Build output for the current source: libknox_native-<sha>.so."""
+    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    return _BUILD / f"libknox_native-{digest}.so"
+
+
+def _build() -> Path:
+    so = library_path()
+    if not so.exists():
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        subprocess.run(
+            ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+             "-o", str(tmp), str(_SRC)],
+            check=True, capture_output=True)
+        os.replace(tmp, so)           # concurrent builders: last one wins
+    return so
 
 
 def _load() -> None:
     global lib
     if lib is not None or os.environ.get("KNOX_NO_NATIVE"):
         return
-    if not _build():
-        return
     try:
-        L = ctypes.CDLL(str(_SO))
+        L = ctypes.CDLL(str(_build()))
         u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
         u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
         L.bitplane_pack.argtypes = [u64p, ctypes.c_int64, ctypes.c_int64,
@@ -65,8 +73,10 @@ def _load() -> None:
                                      ctypes.c_int64]
         L.lz4_decompress.restype = ctypes.c_int64
         lib = L
-    except Exception:
+    except (OSError, subprocess.CalledProcessError) as e:
         lib = None
+        print(f"knoxdb: native host library unavailable ({e}); "
+              f"using numpy fallbacks", file=sys.stderr)
 
 
 _load()

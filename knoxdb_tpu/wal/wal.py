@@ -11,7 +11,7 @@ Host-side durability layer mirroring the reference WAL semantics
   (wal.go:33-40; ignore delivers checksum-damaged-but-parseable records,
   reader.go:271-279)
 
-The TPU engine keeps ALL device-side state reconstructible from (sealed
+The engine keeps ALL device-side state reconstructible from (sealed
 segments + WAL): the journal is recovered from the WAL on open, never
 flushed itself (reference makes the same write-amplification choice,
 internal/pack/table/insert.go:26-43).

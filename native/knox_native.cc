@@ -2,7 +2,7 @@
 //
 // The reference implements its encode hot loops in hand-written AVX2/
 // AVX512 assembly (/root/reference/internal/encode/{analyze,bitpack}
-// + internal/cmp). On the TPU build the DEVICE side of those kernels is
+// + internal/cmp). In this build the DEVICE side of those kernels is
 // Pallas/XLA (ops/bitslice.py); this file is the HOST side: the write
 // path's bitplane transpose and one-pass analysis, which run on CPU at
 // merge/encode time and dominate segment build cost in pure numpy.

@@ -1,7 +1,7 @@
 """Predicate kernels vs numpy oracle, across types and filter modes.
 
 Mirrors the reference's kernel-vs-generic-oracle test strategy
-(/root/reference/internal/cmp/avx2/kernel_test.go pattern): the TPU kernel
+(/root/reference/internal/cmp/avx2/kernel_test.go pattern): the device kernel
 must produce bit-identical masks to a trivial numpy implementation.
 """
 

@@ -257,8 +257,8 @@ def test_chunk_plan_and_bias(rng):
 
 
 def test_mxu_factored_high_g(rng):
-    """G in (4096, 16384]: the factored MXU path (Pallas falls back to
-    XLA above L=32) must match the sort kernel."""
+    """G in (4096, 16384]: the factored one-hot path must match the sort
+    kernel."""
     import jax.numpy as jnp
     from knoxdb_tpu.exec import groupby as GB
     from knoxdb_tpu.ops import bitset as bs
@@ -337,8 +337,8 @@ def test_group_query_g16384_and_orderby_k_large(rng):
 
 
 def test_group_moments_mxu_fused_vs_oracle(rng):
-    """r4 fused moments kernel (ONE pass for value + square chunks)
-    against a python-int oracle, pallas (interpret) and XLA fallback."""
+    """Exact one-hot moments (value + square chunks) against a
+    python-int oracle."""
     import jax.numpy as jnp
     from knoxdb_tpu.exec import groupby as GB
     from knoxdb_tpu.ops import bitset as bs
@@ -351,27 +351,22 @@ def test_group_moments_mxu_fused_vs_oracle(rng):
     rlo = jnp.asarray(vals.astype(np.uint32))
     rhi = jnp.zeros((P, N), jnp.uint32)
     qlo, qhi = GB.square_halves(rlo)
-    C1, C2 = 4, 8
-    for ap in (True, False):
-        c, ch1, ch2 = GB.group_moments_mxu(gj, mw, (rlo, rhi),
-                                           (qlo, qhi), G, C1, C2,
-                                           allow_pallas=ap)
-        ok = mask & (gids >= 0) & (gids < G)
-        wc = np.zeros(G, np.int64)
-        ws = np.zeros(G, object)
-        wq = np.zeros(G, object)
-        for p in range(P):
-            for i in np.flatnonzero(ok[p]):
-                g = int(gids[p, i])
-                v = int(vals[p, i])
-                wc[g] += 1
-                ws[g] += v
-                wq[g] += v * v
-        np.testing.assert_array_equal(np.asarray(c), wc)
-        s1 = GB.mxu_chunk_sums(ch1)
-        s2 = GB.mxu_chunk_sums(ch2)
-        assert list(s1) == list(ws), f"value sums ap={ap}"
-        assert list(s2) == list(wq), f"square sums ap={ap}"
+    c, ch1, ch2 = GB.group_moments_mxu(gj, mw, (rlo, rhi), (qlo, qhi), G,
+                                       4, 8)
+    ok = mask & (gids >= 0) & (gids < G)
+    wc = np.zeros(G, np.int64)
+    ws = np.zeros(G, object)
+    wq = np.zeros(G, object)
+    for p in range(P):
+        for i in np.flatnonzero(ok[p]):
+            g = int(gids[p, i])
+            v = int(vals[p, i])
+            wc[g] += 1
+            ws[g] += v
+            wq[g] += v * v
+    np.testing.assert_array_equal(np.asarray(c), wc)
+    assert list(GB.mxu_chunk_sums(ch1)) == list(ws), "value sums"
+    assert list(GB.mxu_chunk_sums(ch2)) == list(wq), "square sums"
 
 
 def test_bucket32_gid_paths(rng):

@@ -2,7 +2,7 @@
 
 Reference: pack-granular rewrite protocol merge.go:21-101 and
 incremental index AddPack/DelPack (engine/interface.go:207-208). The
-TPU engine's segments are immutable, so the incremental form is a
+engine's segments are immutable, so the incremental form is a
 persistent per-segment dead bitmap: scattered deletes merge in
 O(tombstones), a rewrite happens only past DEAD_REWRITE_FRAC, and the
 sealed-segment count stays bounded by MAX_SEGMENTS.

@@ -1,5 +1,5 @@
-"""Multi-host (DCN) layout: hybrid mesh construction + engine queries
-over a virtual 2-host x 4-chip arrangement return results identical to
+"""Multi-host layout: hybrid mesh construction + engine queries
+over a virtual 2-host x 4-device arrangement return results identical to
 single-device execution (parallel/multihost.py)."""
 
 from dataclasses import dataclass

@@ -1,5 +1,5 @@
-"""Pallas fused group-by kernel vs python oracle (interpret mode on CPU;
-the TPU compile path is exercised by the opt-in KNOX_PALLAS bench run)."""
+"""One-hot group-by (exec/groupby.group_aggregate_mxu: the flat and the
+factored XLA paths) vs python oracles, from small G to MAX_GROUPS."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -17,10 +17,18 @@ def _pack_mask(mask_rows):
         axis=2, dtype=np.uint32)
 
 
+def _oracle(gids, vals, maskb, G):
+    ok = maskb & (gids >= 0) & (gids < G)
+    want_cnt = np.bincount(gids[ok].astype(np.int64), minlength=G)
+    want_sum = np.zeros(G, object)
+    np.add.at(want_sum, gids[ok].astype(np.int64), vals[ok].astype(object))
+    return want_cnt, [int(x) for x in want_sum]
+
+
 @pytest.mark.parametrize("G,P,N", [(1000, 3, 8192), (200, 1, 4096),
                                    (4096, 2, 8192),
-                                   (8192, 1, 8192),   # H=256 route
-                                   (6000, 1, 8192)])  # H=256, G<H*L
+                                   (8192, 1, 8192),
+                                   (6000, 1, 8192)])   # G < H*L
 def test_pallas_group_matches_oracle(rng, G, P, N):
     gids = rng.integers(-2, G + 3, (P, N)).astype(np.int32)  # some invalid
     vals = rng.integers(0, 1 << 63, (P, N), dtype=np.uint64)
@@ -28,88 +36,51 @@ def test_pallas_group_matches_oracle(rng, G, P, N):
     maskb = rng.random((P, N)) < 0.7
     words = _pack_mask(maskb)
 
-    counts, chunks, _, _ = GB._group_pallas(
+    counts, chunks, _, _ = GB.group_aggregate_mxu(
         jnp.asarray(gids), jnp.asarray(words), jnp.asarray(vals), G)
-    counts = np.asarray(counts)
-    sums = GB.mxu_chunk_sums(chunks)
-
-    ok = maskb & (gids >= 0) & (gids < G)
-    want_cnt = np.zeros(G, np.int64)
-    want_sum = [0] * G
-    for p in range(P):
-        for i in np.nonzero(ok[p])[0]:
-            g = int(gids[p, i])
-            want_cnt[g] += 1
-            want_sum[g] += int(vals[p, i])
-    np.testing.assert_array_equal(counts, want_cnt)
-    assert list(sums) == want_sum
+    want_cnt, want_sum = _oracle(gids, vals, maskb, G)
+    np.testing.assert_array_equal(np.asarray(counts), want_cnt)
+    assert list(GB.mxu_chunk_sums(chunks)) == want_sum
 
 
-def test_pallas_group_dispatch(rng, monkeypatch):
-    """The default dispatch routes group_aggregate_mxu through the Pallas
-    kernel for factored-range G; allow_pallas=False keeps the XLA path."""
-    monkeypatch.delenv("KNOX_NO_PALLAS_GROUP", raising=False)
-    G, P, N = 512, 2, 4096
-    gids = rng.integers(0, G, (P, N)).astype(np.int32)
-    vals = rng.integers(0, 1 << 40, (P, N), dtype=np.uint64)
-    words = np.full((P, N // 32), 0xFFFFFFFF, np.uint32)
-    a = GB.group_aggregate_mxu(jnp.asarray(gids), jnp.asarray(words),
-                               jnp.asarray(vals), G)
-    b = GB.group_aggregate_mxu(jnp.asarray(gids), jnp.asarray(words),
-                               jnp.asarray(vals), G, allow_pallas=False)
-    np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
-    assert list(GB.mxu_chunk_sums(a[1])) == list(GB.mxu_chunk_sums(b[1]))
+def test_pallas_group_dispatch(rng):
+    """group_aggregate_mxu takes the flat one-hot below
+    _MXU_FACTORED_MIN_G and the factored one from there up; both agree
+    with the sort kernel."""
+    P, N = 2, 4096
+    for G in (GB._MXU_FACTORED_MIN_G - 1, GB._MXU_FACTORED_MIN_G, 512):
+        gids = rng.integers(0, G, (P, N)).astype(np.int32)
+        vals = rng.integers(0, 1 << 40, (P, N), dtype=np.uint64)
+        words = np.full((P, N // 32), 0xFFFFFFFF, np.uint32)
+        a = GB.group_aggregate_mxu(jnp.asarray(gids), jnp.asarray(words),
+                                   jnp.asarray(vals), G)
+        c, lo, hi, _, _ = GB.group_aggregate(
+            jnp.asarray(gids), jnp.asarray(words), jnp.asarray(vals), G)
+        np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(c))
+        want = [int(x) + (int(y) << 32) for x, y in zip(np.asarray(lo),
+                                                       np.asarray(hi))]
+        assert list(GB.mxu_chunk_sums(a[1])) == want, f"G={G}"
 
 
-def test_pick_sublanes_budget():
-    """Tile-size rule: known-good shapes keep their validated S; the
-    VMEM budget (hi_oh + m2 bf16 <= ~9.5 MB) never picks a tile bigger
-    than the r2-cont TPU-probed ones (probes/pg3_variants.py)."""
-    from knoxdb_tpu.ops.pallas_group import pick_sublanes
-
-    assert pick_sublanes(128, 8, 4) == 16    # config-3 shape (probed +56%)
-    assert pick_sublanes(128, 8, 8) == 16
-    assert pick_sublanes(256, 32, 8) == 8    # r2 H=256 validated shape
-    assert pick_sublanes(128, 32, 8) == 8
-    assert pick_sublanes(128, 1, 1) == 32    # tiny tiles can go wide
-
-
-def test_fused_partials_forced_sublanes(rng):
-    """Exactness is independent of the sublane tile choice (S is a pure
-    layout knob): forced S=8/16/32 all match, including the pad tail."""
-    import jax.numpy as jnp
-
-    from knoxdb_tpu.ops.pallas_group import fused_group_partials
-
-    G, L, shift, C = 60, 1, 0, 2
-    n = 5000                                  # pads differently per S
-    gid = rng.integers(0, G, n).astype(np.int32)
-    vlo = rng.integers(0, 1 << 16, n).astype(np.uint32)
-    vhi = np.zeros(n, np.uint32)
-    outs = []
-    for S in (8, 16, 32):
-        parts = fused_group_partials(
-            jnp.asarray(gid), jnp.asarray(vlo), jnp.asarray(vhi),
-            G, L, shift, n_chunks=C, interpret=True, S=S)
-        outs.append(np.asarray(parts).astype(np.int64).sum(axis=0))
-    np.testing.assert_array_equal(outs[0], outs[1])
-    np.testing.assert_array_equal(outs[0], outs[2])
-    want = np.zeros((128, C + 1), np.int64)
-    for g, v in zip(gid, vlo):
-        want[g, C] += 1
-        want[g, 0] += v & 0xFF
-        want[g, 1] += (v >> 8) & 0xFF
-    np.testing.assert_array_equal(outs[0].reshape(128, C + 1), want)
+@pytest.mark.parametrize("G", [16384, 65536])
+def test_factored_big_g_oracle(rng, G):
+    """The factored path at the top of the group domain (MAX_GROUPS),
+    incl. out-of-domain and masked rows and a partial last tile."""
+    P, N = 2, 40960
+    gids = rng.integers(-3, G + 5, (P, N)).astype(np.int32)
+    vals = rng.integers(0, 1 << 41, (P, N), dtype=np.uint64)
+    maskb = rng.random((P, N)) < 0.9
+    counts, chunks, _, _ = GB.group_aggregate_mxu(
+        jnp.asarray(gids), jnp.asarray(_pack_mask(maskb)),
+        jnp.asarray(vals), G, n_chunks=6)
+    want_cnt, want_sum = _oracle(gids, vals, maskb, G)
+    np.testing.assert_array_equal(np.asarray(counts), want_cnt)
+    assert list(GB.mxu_chunk_sums(chunks)) == want_sum
 
 
 def test_multipass_bigG_oracle(rng):
-    """r5 multi-pass group path (G > 8192): pass p re-runs the kernel on
-    gid - p*8192 (out-of-pass rows self-exclude). Oracle-exact counts +
-    chunk sums at G=20000 through _group_pallas, incl. out-of-domain and
-    masked rows."""
-    import jax.numpy as jnp
-
-    from knoxdb_tpu.exec.groupby import _group_pallas
+    """Oracle-exact counts + chunk sums at G=20000 through the factored
+    path, incl. out-of-domain and masked rows."""
 
     G = 20000
     n = 65536
@@ -120,7 +91,7 @@ def test_multipass_bigG_oracle(rng):
     maskbits = rng.random(n) < 0.9
     mw = bs.np_pack_mask(maskbits).reshape(1, -1)
     keys = (vhi.astype(np.uint64) << np.uint64(32)) | vlo.astype(np.uint64)
-    c_, ch, _mn, _mx = _group_pallas(
+    c_, ch, _mn, _mx = GB.group_aggregate_mxu(
         jnp.asarray(gid).reshape(1, -1), jnp.asarray(mw),
         jnp.asarray(keys).reshape(1, -1), G, n_chunks=6)
     ok = maskbits & (gid >= 0) & (gid < G)
@@ -136,8 +107,8 @@ def test_multipass_bigG_oracle(rng):
 
 
 def test_group_query_bigG_engine(rng):
-    """Engine-level group query above the old 16384 MXU ceiling rides
-    the multi-pass kernel and stays oracle-exact."""
+    """Engine-level group query at G=20000 rides the factored one-hot
+    path and stays oracle-exact."""
     import knoxdb_tpu.knox as knox
     from knoxdb_tpu.schema.schema import Builder
     from knoxdb_tpu.types import FieldType
@@ -169,3 +140,84 @@ def test_group_query_bigG_engine(rng):
     got = np.asarray(out[("sum", "v")])[order]
     assert [int(x) for x in got] == [int(wsum[i]) for i in present]
     db.close()
+
+
+@pytest.mark.parametrize("G", [40, 3000])
+def test_scanner_kernel_family_dispatch(rng, monkeypatch, G):
+    """A scanner whose kernel family is "triton" routes the engine's
+    group and series-moments plans through the Triton kernel (run here
+    in interpret mode), and gives the same exact results as "xla"."""
+    import knoxdb_tpu.knox as knox
+    from knoxdb_tpu.schema.schema import Builder
+    from knoxdb_tpu.series import SeriesRequest, run_series
+    from knoxdb_tpu.types import FieldType
+
+    calls = []
+    real = GB._group_triton
+
+    def traced(*a, **kw):
+        calls.append(a[3])
+        return real(*a, **{**kw, "interpret": True})
+
+    monkeypatch.setattr(GB, "_group_triton", traced)
+    n = 1 << 13
+    db = knox.create_database("fam", driver="mem", pack_size=4096,
+                              background_merge=False)
+    t = db.create_table(Builder("t").pk("id").add("g", FieldType.UINT32)
+                        .add("ts", FieldType.UINT64)
+                        .add("v", FieldType.UINT32).finish())
+    t.insert({"id": np.zeros(n, np.uint64),
+              "g": rng.integers(0, G, n).astype(np.uint32),
+              "ts": np.arange(n, dtype=np.uint64) * np.uint64(10),
+              "v": rng.integers(0, 1 << 20, n).astype(np.uint32)})
+    t.merge()
+    req = SeriesRequest(table=t, time_field="ts", start=0, end=n * 10,
+                        interval=640, aggs=[("sum", "v"), ("var", "v")])
+    out = {}
+    for fam in ("xla", "triton"):
+        for h in t._t.segments:
+            h.scanner_().kernels = fam
+        grp = t.query().group_by("g").aggregate(("count", ""), ("sum", "v"))
+        ser = run_series(req)
+        out[fam] = ({k: [int(x) for x in v] for k, v in grp.items()},
+                    {k: [float(x) for x in v] for k, v in ser.items()})
+    db.close()
+    assert out["triton"] == out["xla"]
+    assert G in calls and (n * 10) // 640 in calls   # group + moments
+
+
+@pytest.mark.parametrize("G,P,N,C", [(20, 1, 4096, 6), (1000, 2, 8192, 6),
+                                     (300, 1, 8192, 8), (8192, 1, 8192, 3)])
+def test_triton_group_kernel_interpret(rng, G, P, N, C):
+    """The Triton group kernel (ops/pallas_group) in Pallas interpret
+    mode: exact counts and chunk sums vs the python oracle, incl. invalid
+    gids, masked rows, full 8-byte values and a padded last split."""
+    gids = rng.integers(-2, G + 3, (P, N)).astype(np.int32)
+    vals = rng.integers(0, 1 << min(63, 8 * C), (P, N), dtype=np.uint64)
+    if C == 8:
+        vals[0, :16] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    maskb = rng.random((P, N)) < 0.7
+    counts, chunks, _, _ = GB._group_triton(
+        jnp.asarray(gids), jnp.asarray(_pack_mask(maskb)),
+        jnp.asarray(vals), G, n_chunks=C, interpret=True)
+    want_cnt, want_sum = _oracle(gids, vals, maskb, G)
+    np.testing.assert_array_equal(np.asarray(counts), want_cnt)
+    assert list(GB.mxu_chunk_sums(chunks)) == want_sum
+
+
+def test_triton_group_split_plan():
+    """Row splits: multiples of the flush size, at most MAX_SPLIT rows
+    (int32-exact accumulators), covering every row, and enough programs
+    to fill the card at deployment sizes."""
+    from knoxdb_tpu.ops import pallas_group as PG
+    for n in (1, 4096, 5000, 1 << 20, 1 << 26, (1 << 26) + 12345):
+        for blocks in (1, 8, 64):
+            flush, split, splits = PG._split_plan(n, blocks)
+            assert flush <= PG.MAX_FLUSH and flush % PG.ROWS_T == 0
+            assert split % flush == 0 and split <= PG.MAX_SPLIT
+            assert splits * split >= n > (splits - 1) * split
+            if n >= 1 << 26:
+                assert splits * blocks >= PG.TARGET_PROGRAMS // 2
+    assert PG.geometry(1000, 6) == (8, 8)
+    assert PG.geometry(65536, 8) == (512, 16)
+    assert PG.geometry(20, 2) == (1, 4)

@@ -1,16 +1,31 @@
-"""Pallas fused scan kernel vs XLA/bitslice oracle (interpret mode on
-CPU; the TPU compile path is exercised by the bench/verify drives)."""
+"""Bit-sliced scan (ops/bitslice, the XLA sweep every plan runs) vs
+numpy oracles: range compare, masked per-plane counts and exact sums,
+and whole filter trees with multi-aggregates through SegmentScanner."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
 from knoxdb_tpu.encode import schemes as S
-from knoxdb_tpu.ops import pallas_scan as PS
+from knoxdb_tpu.ops import bitset as bs
+from knoxdb_tpu.ops import bitslice as B
+
+
+def _sweep(planes, mins, valid, lo, hi, width):
+    """The XLA sweep: range compare, then masked per-plane counts."""
+    import jax
+    planes = jnp.asarray(planes)
+    mask = B.range_planes(planes, jnp.asarray(mins), lo, hi, width) \
+        & jnp.asarray(valid)
+    cnt = jax.lax.population_count(mask).astype(jnp.int32).sum(axis=-1)
+    pcnt = jnp.stack([
+        jax.lax.population_count(planes[p] & mask).astype(jnp.int32)
+        .sum(axis=-1) for p in range(width)], axis=1)
+    return mask, pcnt, cnt
 
 
 @pytest.mark.parametrize("width,P", [(8, 8), (16, 8), (1, 16),
-                                     (41, 8)])  # 41: blockwise pcnt
+                                     (41, 8)])
 def test_fused_range_sum_matches_oracle(rng, width, P):
     N = 1024
     vals = rng.integers(0, 1 << width, (P, N), dtype=np.uint64)
@@ -18,24 +33,23 @@ def test_fused_range_sum_matches_oracle(rng, width, P):
     vals_abs = vals + mins[:, None]
     planes = np.stack([
         S.encode_bitpack(vals_abs[p], 1, int(mins[p]), width, N).planes
-        for p in range(P)], axis=1)     # plane-major [w, P, W] (r4)
+        for p in range(P)], axis=1)     # plane-major [w, P, W]
     valid = np.full((P, N // 32), 0xFFFFFFFF, np.uint32)
     valid[-1, -2:] = 0x0000FFFF      # partial pack edge
+    vbits = np.stack([bs.np_unpack_mask(valid[p], N) for p in range(P)])
 
     for lo, hi in [(400, 900), (0, 10**6), (10**6, 2 * 10**6), (550, 550)]:
-        lo64, hi64 = jnp.uint64(lo), jnp.uint64(hi)
-        lob, hib, flags = PS.range_consts(jnp.asarray(mins), lo64, hi64,
-                                          width)
-        mask, pcnt, cnt = PS.fused_range_sum(
-            jnp.asarray(planes), lob, hib, flags, jnp.asarray(valid),
-            width, interpret=True)
-        rmask, rpcnt, rcnt = PS.fused_range_sum_ref(
-            jnp.asarray(planes), jnp.asarray(mins), jnp.asarray(valid),
-            lo64, hi64, width)
-        np.testing.assert_array_equal(np.asarray(mask), np.asarray(rmask),
+        mask, pcnt, cnt = _sweep(planes, mins, valid, jnp.uint64(lo),
+                                 jnp.uint64(hi), width)
+        m = (vals_abs >= lo) & (vals_abs <= hi) & vbits
+        want_mask = np.stack([bs.np_pack_mask(m[p]) for p in range(P)])
+        np.testing.assert_array_equal(np.asarray(mask), want_mask,
                                       err_msg=f"[{lo},{hi}] mask")
-        np.testing.assert_array_equal(np.asarray(pcnt), np.asarray(rpcnt))
-        np.testing.assert_array_equal(np.asarray(cnt), np.asarray(rcnt))
+        want_pcnt = np.stack([((vals >> np.uint64(b)) & np.uint64(1))
+                              .astype(bool) & m for b in range(width)],
+                             axis=-1).sum(axis=1)
+        np.testing.assert_array_equal(np.asarray(pcnt), want_pcnt)
+        np.testing.assert_array_equal(np.asarray(cnt), m.sum(axis=1))
 
 
 def test_exact_sum_reconstruction(rng):
@@ -45,13 +59,12 @@ def test_exact_sum_reconstruction(rng):
     vals_abs = vals + mins[:, None]
     planes = np.stack([
         S.encode_bitpack(vals_abs[p], 1, int(mins[p]), width, N).planes
-        for p in range(P)], axis=1)     # plane-major [w, P, W] (r4)
+        for p in range(P)], axis=1)     # plane-major [w, P, W]
     valid = np.full((P, N // 32), 0xFFFFFFFF, np.uint32)
     lo, hi = jnp.uint64(500), jnp.uint64(10**6 + 3000)
-    lob, hib, flags = PS.range_consts(jnp.asarray(mins), lo, hi, width)
-    mask, pcnt, cnt = PS.fused_range_sum(
-        jnp.asarray(planes), lob, hib, flags, jnp.asarray(valid),
-        width, interpret=True)
+    mask, pcnt, cnt = _sweep(planes, mins, valid, lo, hi, width)
+    sums, cnt2 = B.masked_sum_planes(jnp.asarray(planes),
+                                     jnp.asarray(mins), mask, width)
     pcnt, cnt = np.asarray(pcnt), np.asarray(cnt)
     for p in range(P):
         m = (vals_abs[p] >= 500) & (vals_abs[p] <= 10**6 + 3000)
@@ -59,13 +72,14 @@ def test_exact_sum_reconstruction(rng):
         got = sum(int(pcnt[p, b]) << b for b in range(width)) \
             + int(mins[p]) * int(cnt[p])
         assert got == want and cnt[p] == m.sum()
+        assert int(np.asarray(sums)[p]) == want
+        assert int(np.asarray(cnt2)[p]) == m.sum()
 
 
 def test_whole_tree_fusion_vs_oracle(rng):
-    """r4 multi-leaf fused kernel: an AND of two bitpack leaves + a
-    bytes EQ (stays in the XLA rest mask) with sum on a third bitpack
-    column (agg NOT in the tree) — plan must pick the multi kernel and
-    results must match the numpy oracle exactly."""
+    """Multi-leaf plan: an AND of two bitpack leaves + a bytes EQ (a
+    DICT leaf) with sum on a third bitpack column (agg NOT in the tree)
+    — results must match the numpy oracle exactly."""
     from knoxdb_tpu.exec.device import DeviceSegment
     from knoxdb_tpu.exec.scan import AggSpec, SegmentScanner
     from knoxdb_tpu.pack.segment import build_segment
@@ -100,13 +114,6 @@ def test_whole_tree_fusion_vs_oracle(rng):
          & (data["b"] > 0) & (data["s"] == "y"))
     assert res.count == int(m.sum())
     assert res.aggs[("sum", "v")] == int(data["v"][m].astype(object).sum())
-    # the plan must have chosen the multi kernel (2 fused leaves + the
-    # separate agg column)
-    multi = [s for s in sc._fns
-             if isinstance(s, tuple) and any(
-                 isinstance(x, tuple) and len(x) and x[0] == "multi"
-                 for x in s if isinstance(x, tuple))]
-    assert multi, "whole-tree fusion not selected"
 
     # same query with sum on a LEAF column (agg in tree)
     res2 = sc.scan(tree, [AggSpec("count"), AggSpec("sum", "b")])
@@ -115,8 +122,7 @@ def test_whole_tree_fusion_vs_oracle(rng):
 
 
 def test_dict_leaf_fusion_vs_oracle(rng):
-    """r4 phase 2: DICT (bytes + int-dict) leaves fuse as per-pack code
-    ranges. Every fusable mode vs the numpy oracle, incl. values absent
+    """DICT (bytes + int-dict) leaves compare as per-pack code sets. Every fusable mode vs the numpy oracle, incl. values absent
     from some packs' dictionaries (miss -> empty code range)."""
     from knoxdb_tpu.exec.device import DeviceSegment
     from knoxdb_tpu.exec.scan import AggSpec, SegmentScanner
@@ -132,7 +138,7 @@ def test_dict_leaf_fusion_vs_oracle(rng):
            .add("v", FieldType.UINT64)
            .finish())
     # uniform dictionaries (every pack sees the full pool) -> ONE
-    # device group, the fused-kernel contract; a nowhere-present value
+    # device group; a nowhere-present value
     # ("qq") covers the empty-code-range miss path
     svals = np.array(["aa", "bb", "cc", "dd", "zz"], object)
     sidx = rng.integers(0, 5, n)
@@ -175,20 +181,12 @@ def test_dict_leaf_fusion_vs_oracle(rng):
         assert res.count == int(m.sum()), f"{f.mode} count"
         assert res.aggs[("sum", "v")] == \
             int(data["v"][m].astype(object).sum()), f"{f.mode} sum"
-    # the dict leaves must actually be IN the fused fields
-    multi_sigs = [x for s in sc._fns if isinstance(s, tuple)
-                  for x in s if isinstance(x, tuple) and len(x) == 4
-                  and x[0] == "multi"]
-    assert any("s" in x[2] or "k" in x[2] for x in multi_sigs), \
-        "dict leaf never fused"
 
 
-def test_fused_vs_unfused_equivalence(rng, monkeypatch):
-    """The whole-tree kernel and the XLA matcher path MUST agree
-    predicate-by-predicate (the dict code-interval mapping lives in two
-    host twins — scan._dict_code_range_host vs rewrite._dict_consts* —
-    and this is the guard): run the same randomized query set with the
-    tree kernel on and off and compare counts + sums exactly."""
+def test_fused_vs_unfused_equivalence(rng):
+    """A three-leaf tree (dict leaf in every fusable mode, incl. a value
+    in no dictionary) through the XLA plan agrees with the host oracle
+    (exec/oracle.eval_tree) on counts and exact sums."""
     from knoxdb_tpu.exec.device import DeviceSegment
     from knoxdb_tpu.exec.scan import AggSpec, SegmentScanner
     from knoxdb_tpu.pack.segment import build_segment
@@ -221,20 +219,21 @@ def test_fused_vs_unfused_equivalence(rng, monkeypatch):
         ).optimize())
     aggs = [AggSpec("count"), AggSpec("sum", "v")]
 
-    results = {}
-    for tag, env in (("fused", "0"), ("unfused", "1")):
-        monkeypatch.setenv("KNOX_NO_PALLAS_TREE", env)
-        sc = SegmentScanner(DeviceSegment(seg))
-        results[tag] = [(r.count, r.aggs[("sum", "v")])
-                        for r in (sc.scan(q, aggs) for q in queries)]
-    assert results["fused"] == results["unfused"]
+    from knoxdb_tpu.exec import oracle as ORC
+    sc = SegmentScanner(DeviceSegment(seg))
+    got = [(r.count, r.aggs[("sum", "v")])
+           for r in (sc.scan(q, aggs) for q in queries)]
+    want = []
+    for q in queries:
+        m = ORC.eval_tree(q, data, n)
+        want.append((int(m.sum()), int(data["v"][m].astype(object).sum())))
+    assert got == want
 
 
-def test_mask_only_tree_fusion(rng, monkeypatch):
-    """Mask-only whole-tree fusion (DEFAULT ON since r5): count-only
-    queries plan the kernel with NO agg specs and stay oracle-exact
-    (incl. projection via the kernel's mask); KNOX_PALLAS_MASKONLY=0
-    reverts those plans to the XLA sweep with identical results."""
+def test_mask_only_tree_fusion(rng):
+    """Mask-only plans (count-only, no aggregate column) stay
+    oracle-exact, incl. projection through the plan's mask, and a fresh
+    scanner gives identical results."""
     from knoxdb_tpu.exec.device import DeviceSegment
     from knoxdb_tpu.exec.scan import AggSpec, SegmentScanner
     from knoxdb_tpu.pack.segment import build_segment
@@ -263,24 +262,16 @@ def test_mask_only_tree_fusion(rng, monkeypatch):
     assert res.count == int(m.sum())
     res3 = sc.scan(tree, [AggSpec("count")], project=["a"], limit=50)
     assert len(res3.rows["a"]) == min(50, int(m.sum()))
-    sigs = [x for s in sc._fns if isinstance(s, tuple)
-            for x in s if isinstance(x, tuple) and len(x) == 4
-            and x[0] == "multi"]
-    assert any(x[3] == () for x in sigs), "mask-only plan not selected"
-    # kill switch: same results, no fused plan
-    monkeypatch.setenv("KNOX_PALLAS_MASKONLY", "0")
+    ids = np.asarray(res3.row_ids, np.int64)
+    assert m[ids].all() and np.array_equal(
+        np.asarray(res3.rows["a"], np.uint64), data["a"][ids])
     sc2 = SegmentScanner(DeviceSegment(seg))
     assert sc2.scan(tree, [AggSpec("count")]).count == res.count
-    sigs2 = [x for s in sc2._fns if isinstance(s, tuple)
-             for x in s if isinstance(x, tuple) and len(x) == 4
-             and x[0] == "multi"]
-    assert not sigs2, "kill switch ignored"
 
 
 def test_multi_agg_fused_kernel(rng):
-    """r5: count+sum+min+max (the driver entry() shape) runs ONE fused
-    kernel — sum popcounts AND min/max tournaments from a single HBM
-    pass — and matches the numpy oracle exactly, incl. a signed leaf
+    """count+sum+min+max (the driver entry() shape) over two aggregate
+    columns matches the numpy oracle exactly, incl. a signed leaf
     column, a >32-bit-wide agg column (hi-half tournament bits), and an
     empty-result query."""
     from knoxdb_tpu.exec.device import DeviceSegment
@@ -320,11 +311,6 @@ def test_multi_agg_fused_kernel(rng):
     assert res.aggs[("min", "b")] == int(data["b"][m].min())
     assert res.aggs[("max", "b")] == int(data["b"][m].max())
     # the plan must fuse BOTH agg columns (v: sum+mm; b: mm only)
-    sigs = [x for s in sc._fns if isinstance(s, tuple)
-            for x in s if isinstance(x, tuple) and len(x) == 4
-            and x[0] == "multi"]
-    assert any(("v", True, True) in x[3] and ("b", False, True) in x[3]
-               for x in sigs), "multi-agg fusion not selected"
     # empty result: min/max are None, sum 0
     t0 = leaf(Filter(sch.field("a"), FilterMode.GT, 10 ** 9)).optimize()
     r0 = sc.scan(t0, aggs)
